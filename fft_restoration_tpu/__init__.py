@@ -1,23 +1,22 @@
-"""fft_restoration_tpu — TPU-native frequency-domain image restoration.
+"""fft_restoration_tpu — frequency-domain image restoration on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 `vayne1125/Parallel-Implementation-of-Frequency-Domain-Image-Restoration-using-FFT`
-(reference mounted at /root/reference): Wiener deconvolution of motion-blurred
-RGB images via a hand-built radix-2 2D FFT, with PSF synthesis from
-(length, angle), power-of-two padding, min-max normalization and Lab-space
-white balance.
+(the reference): Wiener deconvolution of motion-blurred RGB images via a
+2D FFT, with PSF synthesis from (length, angle), power-of-two padding,
+min-max normalization and Lab-space white balance. On a GPU the FFTs are
+cuFFT calls (``jnp.fft``) and XLA fuses the elementwise phases.
 
 Where the reference implements the same pipeline six times (serial, AVX2,
-OpenMP, MPI, MPI+AVX2, CUDA — see /root/reference/fft/), this package maps
-each parallelism strategy to its TPU-native equivalent:
+OpenMP, MPI, MPI+AVX2, CUDA — its fft/ directory), this package maps each
+parallelism strategy to one JAX equivalent:
 
     serial      -> NumPy oracle (fft_restoration_tpu.oracle)
-    simd        -> VPU-vectorized jnp ops inside one jit graph (ops.fft)
-    openmp      -> batched rows in a single fused XLA/Pallas kernel
-    gpu (CUDA)  -> single-chip jit graph w/ fused Pallas kernels (models.pipeline)
+    simd/openmp -> vectorized jnp ops inside one jit graph (ops.fft)
+    gpu (CUDA)  -> single-device jit graph (models.pipeline)
     mpi(+simd)  -> shard_map over a device Mesh with all_to_all transposes
-                   riding ICI (parallel.sharded_fft)
-    channel loop-> vmap over channels / image batches (models.batched)
+                   (parallel.sharded_fft; NCCL over NVLink on a GPU host)
+    channel loop-> leading batch axes over channels / images (models.batched)
 """
 
 __version__ = "0.4.0"

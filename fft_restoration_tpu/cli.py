@@ -6,7 +6,7 @@ selects its implementation at compile time (`make MODE=...`,
 Makefile:1-60) and ships six main()s, here `--mode` selects at runtime:
 
     oracle   ≙ serial   (NumPy oracle, the parity reference)
-    jit      ≙ gpu/simd/openmp  (single-chip fused XLA graph;
+    jit      ≙ gpu/simd/openmp  (single-device fused XLA graph;
                --fft-backend picks the compute strategy)
     sharded  ≙ mpi/mpi_simd     (row-sharded mesh, all_to_all FFT;
                --devices ≙ mpirun -np N)
@@ -35,30 +35,22 @@ _BATCH_CHUNK_BYTES = 8 << 30
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="fft_restoration_tpu",
-        description="TPU-native frequency-domain motion-deblur (Wiener).",
+        description="Frequency-domain motion-deblur (Wiener) on JAX/XLA.",
     )
     p.add_argument("img_path", help="input image (PNG)")
     p.add_argument("psf_length", type=int, help="motion blur length in px (>=1)")
     p.add_argument("psf_angle", type=float, help="motion blur angle in degrees")
     p.add_argument("-o", "--output", default=None, help="output PNG path")
     p.add_argument("--mode", choices=MODES, default="jit")
-    from fft_restoration_tpu.ops.fft import FFT_BACKENDS
+    from fft_restoration_tpu.ops.fft import DEFAULT_FFT_BACKEND, FFT_BACKENDS
 
     p.add_argument(
         "--fft-backend",
         choices=FFT_BACKENDS,
-        default="matmul",
-        help="FFT compute strategy for jit/sharded modes "
-        "(pallas = fused TPU kernels, fastest on hardware; "
-        "matmul = MXU four-step, fastest compile)",
-    )
-    p.add_argument(
-        "--fft-engine",
-        choices=("mxu", "roll"),
-        default="mxu",
-        help="butterfly engine inside the pallas kernels (mxu = outer "
-        "roll-stages + per-group DFT matmul on the MXU; roll = all "
-        "log2(N) VPU roll-stages). Ignored by other backends.",
+        default=DEFAULT_FFT_BACKEND,
+        help="FFT compute strategy for jit/sharded modes (xla = jnp.fft, "
+        "cuFFT on the GPU, the default; radix2/matmul/naive = hand-built "
+        "jnp transforms)",
     )
     p.add_argument(
         "--filter",
@@ -145,17 +137,6 @@ def build_parser() -> argparse.ArgumentParser:
         "so verification still runs). All modes except the sharded "
         "2D-mesh directory batch.",
     )
-    p.add_argument(
-        "--wb-stride",
-        type=int,
-        default=1,
-        help="white-balance statistics stride (pallas jit mode): sample "
-        "every Nth 8-row stripe for the Lab-L means. The gain is a "
-        "ratio of means over the SAME pixels, so sampling adds only "
-        "the stripe-sampled gain deviation (~0.04 uint8 counts at "
-        "2048 rows, <= 2 on small structured frames; docs/PERF.md). "
-        "1 = exact (default)",
-    )
     p.add_argument("-K", type=float, default=0.01, help="Wiener K (default 0.01)")
     p.add_argument(
         "--devices",
@@ -176,36 +157,16 @@ def build_parser() -> argparse.ArgumentParser:
         help="verification tolerance tier (reference: simd/mpi=l2, openmp=inf, gpu=gpu)",
     )
     p.add_argument(
-        "--mxu-precision",
-        choices=("default", "highest"),
-        default=None,
-        help="matmul precision of the pallas MXU group DFTs. 'default' "
-        "(bf16, the flagship: -31%% device time, passes the reference's "
-        "gpu tier at PSNR ~53 dB) or 'highest' (6-pass f32 emulation, "
-        "~122 dB oracle parity). Unset: follows --tier — gpu tier gets "
-        "'default', the strict l2/inf tiers get 'highest'.",
-    )
-    p.add_argument(
         "--pad",
         choices=("pow2", "smooth"),
         default="pow2",
         help="DFT pad extents. 'pow2' = the reference contract "
         "(utils.hpp:40-47, up to 2x the pixels); 'smooth' = minimal "
-        "odd*2^k extents via the mixed-radix kernels (e.g. UHD "
+        "odd*2^k extents (e.g. UHD "
         "3840x2160 restores at 3840x2304 instead of 4096x4096). "
         "Verification then compares against the oracle at the SAME "
         "extents (the restored output depends on the pad). jit and "
         "sharded modes; oracle mode ignores it with a note.",
-    )
-    p.add_argument(
-        "--stage-dtype",
-        choices=("f32", "bf16"),
-        default="f32",
-        help="storage dtype of the inter-kernel spectral planes on the "
-        "pallas fast path. 'bf16' halves ~134 MB of HBM traffic per "
-        "2048²x3 frame (compute stays f32 in every kernel) but measured "
-        "~neutral on v5e (compute-bound kernels hide the saved DMA; "
-        "docs/PERF.md round 3), so 'f32' stays the default",
     )
     p.add_argument(
         "--profile",
@@ -215,8 +176,8 @@ def build_parser() -> argparse.ArgumentParser:
         choices=("phases", "trace"),
         help="'phases': host-timed per-phase breakdown (reference phase "
         "taxonomy; each phase pays a host sync). 'trace': device-timeline "
-        "profile via jax.profiler — per-op times from the TPU's own "
-        "clock, excluding host RTT and other pool tenants (the cudaEvent-"
+        "profile via jax.profiler — per-op and per-phase times from the "
+        "device's own clock, plus the device idle share (the cudaEvent-"
         "profiler analog, fft_gpu.cu:17-57)",
     )
     p.add_argument(
@@ -269,9 +230,7 @@ def _apply_psf_estimate(args, img) -> None:
         )
         raise SystemExit(2)
 
-    backend = (
-        args.fft_backend if args.fft_backend != "pallas" else "matmul"
-    )
+    backend = args.fft_backend
     if args.psf_type == "motion":
         length, angle, conf = est.estimate_motion_psf(
             img, fft_backend=backend
@@ -325,26 +284,31 @@ def _apply_psf_estimate(args, img) -> None:
 
 
 
-def _enable_compile_cache() -> None:
-    """Persistent XLA compilation cache: first compile of each pipeline
-    shape is seconds-to-minutes (Mosaic kernels especially), so cache
-    executables across CLI invocations. Override the location with
-    FFT_RESTORATION_CACHE; set it empty to disable."""
+def _compile_cache_dir() -> str | None:
+    """Where this program keeps XLA's persistent compilation cache.
+
+    None when JAX_COMPILATION_CACHE_DIR is set: JAX reads that variable
+    itself, and the program sets no directory of its own. Otherwise a
+    fixed path inside the checkout (`.jax_cache`, git-ignored) — the
+    path is part of the cache key, so it must not move between runs."""
     import os
 
-    cache = os.environ.get(
-        "FFT_RESTORATION_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "fft_restoration_tpu"),
-    )
-    if not cache:
-        return
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return os.path.join(root, ".jax_cache")
+
+
+def _enable_compile_cache() -> None:
+    """Persistent XLA compilation cache: the first compile of each
+    pipeline shape costs seconds, so executables are cached across
+    processes (see _compile_cache_dir for where; JAX's own threshold
+    decides which compiles are worth an entry)."""
     import jax
 
-    try:
+    cache = _compile_cache_dir()
+    if cache is not None:
         jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass  # older jax without the knobs — harmless
 
 
 def _tile_mesh(args):
@@ -352,7 +316,7 @@ def _tile_mesh(args):
     ride — tiles data-parallel over 'batch', each tile's FFT row-sharded
     over 'rows' (the frame axis scaled across memory domains, the
     reference's distributed-mode purpose, fft_mpi.cpp:89-100). None for
-    jit mode (single-chip tiled paths)."""
+    jit mode (single-device tiled paths)."""
     if args.mode != "sharded":
         return None
     import jax
@@ -469,7 +433,6 @@ def _run_batch(args) -> int:
                     frame, args.psf_length, args.psf_angle, args.K,
                     tile=args.tile, overlap=args.tile_overlap,
                     fft_backend=args.fft_backend,
-                    fft_engine=args.fft_engine,
                     filter_name=args.filter, rl_iters=args.iters,
                     psf_type=args.psf_type,
                     white_balance=not args.no_white_balance,
@@ -523,7 +486,6 @@ def _run_batch(args) -> int:
             fft_backend=args.fft_backend,
             filter_name=args.filter,
             white_balance=not args.no_white_balance,
-            fft_engine=args.fft_engine,
             pad_mode=args.pad,
             edgetaper=args.edgetaper,
             rl_iters=args.iters,
@@ -534,12 +496,9 @@ def _run_batch(args) -> int:
             fft_backend=args.fft_backend,
             filter_name=args.filter,
             white_balance=not args.no_white_balance,
-            fft_engine=args.fft_engine,
-            stage_dtype=args.stage_dtype,
             pad_mode=args.pad,
             rl_iters=args.iters,
             edgetaper=args.edgetaper,
-            wb_stats_stride=args.wb_stride,
             psf_type=args.psf_type,
         )
     for (h, w), group in groups.items():
@@ -593,26 +552,23 @@ def _restore_group(args, group, dst_map, single, batched=None) -> None:
             fft_backend=args.fft_backend,
             filter_name=args.filter,
             white_balance=not args.no_white_balance,
-            fft_engine=args.fft_engine,
-            stage_dtype=args.stage_dtype,
             pad_mode=args.pad,
             rl_iters=args.iters,
             edgetaper=args.edgetaper,
-            wb_stats_stride=args.wb_stride,
             psf_type=args.psf_type,
         )
 
     _dst = dst_map.__getitem__
 
-    # HBM safety: a directory group is restored in chunks bounded by the
-    # padded working set (~12 float32 plane-equivalents per frame in
-    # flight through the batched graph), so arbitrarily large
-    # directories never OOM the device. 2048^2 frames chunk at ~42.
+    # device-memory safety: a directory group is restored in chunks
+    # bounded by the padded working set (~12 float32 plane-equivalents
+    # per frame in flight through the batched graph), so arbitrarily
+    # large directories never OOM the device. 2048^2 frames chunk at ~42.
     if len(group) > 1:
         from fft_restoration_tpu.models.pipeline import pad_extents
 
         h0, w0 = probe_size(group[0])
-        hp0, wp0, _, _ = pad_extents(h0, w0, args.pad)
+        hp0, wp0 = pad_extents(h0, w0, args.pad)
         frame_bytes = hp0 * wp0 * 4 * 12
         chunk = max(2, int(_BATCH_CHUNK_BYTES // frame_bytes))
         if len(group) > chunk:
@@ -642,7 +598,7 @@ def _restore_group(args, group, dst_map, single, batched=None) -> None:
             n_dev = args.devices or len(jax.devices())
             n_b = 2 if n_dev % 2 == 0 and n_dev >= 4 else 1
             h, w = stack.shape[1:3]
-            hp, wp, rad_h, rad_w = pad_extents(h, w, args.pad)
+            hp, wp = pad_extents(h, w, args.pad)
             outs = sharded_batched_restore_images(
                 stack,
                 make_psf_oracle(
@@ -652,9 +608,7 @@ def _restore_group(args, group, dst_map, single, batched=None) -> None:
                 mesh=make_mesh2d(n_b, n_dev // n_b),
                 fft_backend=args.fft_backend,
                 filter_name=args.filter,
-                fft_engine=args.fft_engine,
                 pad_hw=(hp, wp),
-                radices_hw=(rad_h, rad_w),
                 edgetaper=args.edgetaper,
                 rl_iters=args.iters,
                 white_balance=not args.no_white_balance,
@@ -695,26 +649,12 @@ def main(argv=None) -> int:
         return 2
     _enable_compile_cache()
 
-    # MXU matmul precision: follow the requested verification tier
-    # unless pinned — the strict tiers need the f32-emulation DFTs
-    # (ops/pallas/fft_kernel.py set_mxu_precision docstring).
-    from fft_restoration_tpu.ops.pallas.fft_kernel import set_mxu_precision
-
-    set_mxu_precision(
-        args.mxu_precision
-        if args.mxu_precision
-        else ("highest" if args.tier in ("l2", "inf") else "default")
-    )
-
     from fft_restoration_tpu.utils.imageio import imread, imwrite
 
     if args.filter == "rl" and args.iters < 1:
         print("[Error] --iters must be >= 1 (got "
               f"{args.iters}: a 0-iteration RL loop would silently "
               "return the blurred input)")
-        return 2
-    if args.wb_stride < 1:
-        print(f"[Error] --wb-stride must be >= 1 (got {args.wb_stride})")
         return 2
 
     total_start = time.perf_counter()
@@ -751,7 +691,7 @@ def main(argv=None) -> int:
             "contract; --pad smooth is ignored"
         )
         args.pad = "pow2"
-    hp, wp, _, _ = pad_extents(img.shape[0], img.shape[1], args.pad)
+    hp, wp = pad_extents(img.shape[0], img.shape[1], args.pad)
     if args.psf_length > min(hp, wp):
         print(
             f"[Error] psf-length {args.psf_length} exceeds the "
@@ -778,8 +718,6 @@ def main(argv=None) -> int:
             )
         for flag, active in (
             ("--pad smooth", args.pad == "smooth"),
-            ("--wb-stride", args.wb_stride != 1),
-            ("--stage-dtype", args.stage_dtype == "bf16"),
             ("--profile", bool(args.profile)),
         ):
             if active:
@@ -792,7 +730,7 @@ def main(argv=None) -> int:
             out = tiled_restore_image(
                 img, args.psf_length, args.psf_angle, args.K,
                 tile=args.tile, overlap=args.tile_overlap,
-                fft_backend=args.fft_backend, fft_engine=args.fft_engine,
+                fft_backend=args.fft_backend,
                 filter_name=args.filter, rl_iters=args.iters,
                 psf_type=args.psf_type, white_balance=wb, mesh=mesh,
             )
@@ -837,7 +775,6 @@ def main(argv=None) -> int:
             tile_u8 = img[y0a : y0a + th, x0a : x0a + tw]
             anchor = WienerDeblurPipeline(
                 fft_backend=args.fft_backend,
-                fft_engine=args.fft_engine,
                 white_balance=wb,
                 edgetaper=True,
                 psf_type=args.psf_type,
@@ -877,12 +814,6 @@ def main(argv=None) -> int:
             f"Deblurring 3 channels took(oracle): {(t1 - t0) * 1e3:.2f} ms"
         )
     else:
-        if args.fft_backend == "pallas" and args.filter not in ("wiener", "rl"):
-            print(
-                f"[INFO] --filter {args.filter} runs the revorder pallas "
-                f"path with an unfused elementwise filter (wiener "
-                f"additionally fuses the spectral middle into one kernel)"
-            )
         if args.mode == "jit":
             from fft_restoration_tpu.models.pipeline import WienerDeblurPipeline
 
@@ -890,12 +821,9 @@ def main(argv=None) -> int:
                 fft_backend=args.fft_backend,
                 filter_name=args.filter,
                 white_balance=wb,
-                fft_engine=args.fft_engine,
-                stage_dtype=args.stage_dtype,
                 pad_mode=args.pad,
                 rl_iters=args.iters,
                 edgetaper=args.edgetaper,
-                wb_stats_stride=args.wb_stride,
                 psf_type=args.psf_type,
             )
         else:
@@ -909,7 +837,6 @@ def main(argv=None) -> int:
                 fft_backend=args.fft_backend,
                 filter_name=args.filter,
                 white_balance=wb,
-                fft_engine=args.fft_engine,
                 pad_mode=args.pad,
                 edgetaper=args.edgetaper,
                 rl_iters=args.iters,
@@ -957,12 +884,9 @@ def main(argv=None) -> int:
                         fft_backend=args.fft_backend,
                         filter_name=args.filter,
                         white_balance=wb,
-                        fft_engine=args.fft_engine,
                         pad_mode=args.pad,
                         rl_iters=args.iters,
                         edgetaper=args.edgetaper,
-                        wb_stats_stride=args.wb_stride,
-                        stage_dtype=args.stage_dtype,
                         psf_type=args.psf_type,
                     )
                 )

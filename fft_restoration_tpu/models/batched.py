@@ -1,9 +1,9 @@
 """Batched restoration: image stacks through one jit graph.
 
-TPU-native replacement for the reference's outermost sequential loops —
+Replacement for the reference's outermost sequential loops —
 the per-channel for (serial.cpp:34-39) and any multi-image invocation of
 the CLI binaries. Batch and channel become leading array axes of the
-same fused graph (BASELINE.json config 3: 64-image stack, shared PSF).
+same fused graph (e.g. a 64-image stack with a shared PSF).
 The PSF spectrum is computed ONCE and broadcast across the whole stack,
 the optimization the CUDA mode approximates by hoisting allocations
 (fft_gpu.cu:304-322) but cannot get for the PSF FFT itself (it re-runs
@@ -19,58 +19,57 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from fft_restoration_tpu.models.pipeline import restore_planes
+from fft_restoration_tpu.models.pipeline import (
+    _u8_to_unit,
+    pad_extents,
+    restore_planes,
+    wb_encode,
+)
+from fft_restoration_tpu.ops.fft import DEFAULT_FFT_BACKEND
 from fft_restoration_tpu.ops.psf import make_psf, motion_blur_kernel
 from fft_restoration_tpu.utils.padding import next_power_of_two
 
 
 def _batched_core(
-    imgs_f32: jnp.ndarray,
+    imgs: jnp.ndarray,
     angle_deg: jnp.ndarray,
     K: jnp.ndarray,
     *,
     psf_length: int,
     fft_backend: str,
     filter_name: str,
-    fft_engine: str = "mxu",
-    stage_dtype: str | None = None,
     pad_mode: str = "pow2",
     rl_iters: int = 10,
     edgetaper: bool = False,
     psf_type: str = "motion",
 ):
-    """(B, H, W, 3) float32 in [0,1] -> (B, 3, H, W) restored planes."""
-    from fft_restoration_tpu.models.pipeline import pad_extents
-
-    b, h, w = imgs_f32.shape[:3]
-    hp, wp, rad_h, rad_w = pad_extents(h, w, pad_mode)
+    """(B, H, W, 3) uint8 or float32 in [0,1] -> (B, 3, H, W) restored
+    planes."""
+    b, h, w = imgs.shape[:3]
+    hp, wp = pad_extents(h, w, pad_mode)
     psf = make_psf(psf_type, psf_length, angle_deg)
-    chans = jnp.moveaxis(imgs_f32, -1, 1)  # (B, 3, H, W)
-    chans = jnp.pad(chans, ((0, 0), (0, 0), (0, hp - h), (0, wp - w)))
-    # restore_planes batches over all leading axes at once; one PSF FFT.
-    # Flattening (B, 3) -> 3B planes lets channel packing (models/
-    # pipeline._pack_channel_pairs) pair planes ACROSS images: ceil(3B/2)
-    # complex transforms instead of 2 per image — the full 2x for even
-    # batches (a 3-channel image alone gets 2 transforms, one half-empty).
-    flat = chans.reshape(b * 3, hp, wp)
-    if edgetaper:
-        from fft_restoration_tpu.models.edgetaper import edge_taper_planes
+    with jax.named_scope("fphase_ingest_pad"):
+        chans = _u8_to_unit(jnp.moveaxis(imgs, -1, 1))  # (B, 3, H, W)
+        chans = jnp.pad(chans, ((0, 0), (0, 0), (0, hp - h), (0, wp - w)))
+        # restore_planes batches over all leading axes at once; one PSF
+        # FFT. Flattening (B, 3) -> 3B planes lets channel packing
+        # (models/pipeline._pack_channel_pairs) pair planes ACROSS
+        # images: ceil(3B/2) complex transforms instead of 2 per image —
+        # the full 2x for even batches (a 3-channel image alone gets 2
+        # transforms, one half-empty).
+        flat = chans.reshape(b * 3, hp, wp)
+        if edgetaper:
+            from fft_restoration_tpu.models.edgetaper import edge_taper_planes
 
-        flat = edge_taper_planes(
-            flat, psf, (h, w), fft_backend=fft_backend,
-            fft_engine=fft_engine, radices_hw=(rad_h, rad_w),
-        )
+            flat = edge_taper_planes(
+                flat, psf, (h, w), fft_backend=fft_backend
+            )
     restored = restore_planes(
         flat,
         psf,
         K,
         fft_backend=fft_backend,
         filter_name=filter_name,
-        fft_engine=fft_engine,
-        # tapered pad rows carry the blur's wrap tail (see _restore_core)
-        img_rows=None if edgetaper else h,
-        stage_dtype=stage_dtype,
-        radices_hw=(rad_h, rad_w),
         rl_iters=rl_iters,
     ).reshape(b, 3, hp, wp)
     return restored[..., :h, :w]
@@ -85,13 +84,10 @@ def _batched_images_core(
     fft_backend: str,
     filter_name: str,
     white_balance: bool,
-    fft_engine: str = "mxu",
     emit_planes: bool = True,
-    stage_dtype: str | None = None,
     pad_mode: str = "pow2",
     rl_iters: int = 10,
     edgetaper: bool = False,
-    wb_stats_stride: int = 1,
     psf_type: str = "motion",
 ):
     """(B, H, W, 3) uint8/float BGR -> ((B, H, W, 3) uint8, (B, 3, H, W)
@@ -99,134 +95,21 @@ def _batched_images_core(
     post-processing (per-frame Lab white balance, uint8 encode) stays on
     device. The planar color functions are elementwise, so they batch
     over (B, H, W) planes directly; the per-frame means reduce over the
-    trailing axes. With the pallas backend at >=128px the WB+encode
-    runs through the batched fused kernels (ops/pallas/postprocess.py)
-    with fused per-plane normalize and per-image gains; uint8 stacks
-    then stream u8 into the forward FFT kernel (in-kernel ingest)."""
-    b, h, w = imgs.shape[:3]
-    use_ppk = (
-        white_balance
-        and fft_backend == "pallas"
-        and min(h, w) >= 128
-        and filter_name != "rl"
-    )
-    chans0 = jnp.moveaxis(imgs, -1, 1)  # (B, 3, H, W), u8 or f32
-    if use_ppk:
-        from fft_restoration_tpu.models.pipeline import (
-            pad_extents,
-            restore_planes,
-        )
-        from fft_restoration_tpu.ops.pallas.postprocess import (
-            lab_l_sum_partials_batched,
-            wb_encode_u8_batched,
-        )
-
-        hp, wp, rad_h, rad_w = pad_extents(h, w, pad_mode)
-        psf = make_psf(psf_type, psf_length, angle_deg)
-        if edgetaper and chans0.dtype == jnp.uint8:
-            # tapering needs f32 planes before the forward FFT, so the
-            # in-kernel u8 ingest is forfeited (same as _restore_core)
-            chans0 = chans0.astype(jnp.float32) / jnp.float32(255.0)
-        chp = jnp.pad(
-            chans0, ((0, 0), (0, 0), (0, hp - h), (0, wp - w))
-        )
-        flat = chp.reshape(b * 3, hp, wp)
-        if edgetaper:
-            from fft_restoration_tpu.models.edgetaper import (
-                edge_taper_planes,
-            )
-
-            flat = edge_taper_planes(
-                flat, psf, (h, w), fft_backend=fft_backend,
-                fft_engine=fft_engine, radices_hw=(rad_h, rad_w),
-            )
-        raw, lo, scale = restore_planes(
-            flat, psf, K,
-            fft_backend=fft_backend, filter_name=filter_name,
-            fft_engine=fft_engine,
-            img_rows=None if edgetaper else h, return_norm=True,
-            stage_dtype=stage_dtype, radices_hw=(rad_h, rad_w),
-        )
-        orig3b = chans0.reshape(b * 3, h, w)
-        from fft_restoration_tpu.ops.pallas.postprocess import (
-            effective_wb_stride,
-        )
-
-        # strided WB stats (see pipeline._restore_core): fine 8-row
-        # stripes, per-image gains stay ratios over the SAME pixels;
-        # small frames fall back to exact means
-        wb_stats_stride = effective_wb_stride(h, wb_stats_stride)
-        _sb = 8 if wb_stats_stride > 1 else 64
-        parts = lab_l_sum_partials_batched(
-            raw, orig3b, b, norm=(lo, scale), live_hw=(h, w),
-            stride=wb_stats_stride, block_rows=_sb,
-        )
-        from fft_restoration_tpu.ops.pallas.postprocess import (
-            sampled_live_pixels,
-        )
-
-        npix = jnp.float32(
-            sampled_live_pixels(
-                raw.shape[-2], raw.shape[-1], live_hw=(h, w),
-                stride=wb_stats_stride, block_rows=_sb,
-            )
-        )
-        gains = (jnp.sum(parts[:, :, 1], axis=1) / npix) / (
-            jnp.sum(parts[:, :, 0], axis=1) / npix + 1e-6
-        )
-        enc = wb_encode_u8_batched(
-            raw, gains, b, norm=(lo, scale), live_hw=(h, w)
-        )
-        out = jnp.moveaxis(enc.reshape(b, 3, h, w), 1, -1)
-        if not emit_planes:
-            return out, None
-        restored = (
-            (raw[: b * 3, :h, :w] - lo[:, None, None])
-            * scale[:, None, None]
-        ).reshape(b, 3, h, w)
-        return out, restored
-    if chans0.dtype == jnp.uint8:
-        chans0 = chans0.astype(jnp.float32) / jnp.float32(255.0)
+    trailing axes."""
     restored = _batched_core(
-        jnp.moveaxis(chans0, 1, -1),
+        imgs,
         angle_deg,
         K,
         psf_length=psf_length,
         fft_backend=fft_backend,
         filter_name=filter_name,
-        fft_engine=fft_engine,
-        stage_dtype=stage_dtype,
         pad_mode=pad_mode,
         rl_iters=rl_iters,
         edgetaper=edgetaper,
         psf_type=psf_type,
     )
-    if white_balance:
-        from fft_restoration_tpu.ops.color import (
-            bgr_to_lab_planar,
-            lab_to_bgr_planar,
-            luminance_l_planar,
-        )
-
-        L, a_, b_ = bgr_to_lab_planar(
-            restored[:, 0], restored[:, 1], restored[:, 2]
-        )
-        l_orig = jnp.mean(
-            luminance_l_planar(chans0[:, 0], chans0[:, 1], chans0[:, 2]),
-            axis=(-2, -1), keepdims=True,
-        )
-        gain = l_orig / (jnp.mean(L, axis=(-2, -1), keepdims=True) + 1e-6)
-        L = jnp.clip(L * gain, 0.0, 100.0)
-        planes_bgr = lab_to_bgr_planar(L, a_, b_)
-    else:
-        planes_bgr = (restored[:, 0], restored[:, 1], restored[:, 2])
-    out = jnp.stack(
-        [
-            jnp.clip(p * 255.0, 0.0, 255.0).astype(jnp.uint8)
-            for p in planes_bgr
-        ],
-        axis=-1,
-    )
+    with jax.named_scope("fphase_wb_encode"):
+        out = wb_encode(restored, jnp.moveaxis(imgs, -1, 1), white_balance)
     return out, (restored if emit_planes else None)
 
 
@@ -235,24 +118,18 @@ class BatchedWienerPipeline:
 
     def __init__(
         self,
-        fft_backend: str = "matmul",
+        fft_backend: str = DEFAULT_FFT_BACKEND,
         filter_name: str = "wiener",
         white_balance: bool = True,
-        fft_engine: str = "mxu",
         emit_planes: bool = True,
-        stage_dtype: str | None = None,
         pad_mode: str = "pow2",
         rl_iters: int = 10,
         edgetaper: bool = False,
-        wb_stats_stride: int = 1,
         psf_type: str = "motion",
     ):
         self.fft_backend = fft_backend
-        self.fft_engine = fft_engine
         self.filter_name = filter_name
         self.white_balance = white_balance
-        # bf16 inter-kernel staging (pipeline.restore_planes stage_dtype)
-        self.stage_dtype = stage_dtype
         # serving graph: skip the (B, 3, H, W) diagnostic planes output
         # (see pipeline.WienerDeblurPipeline emit_planes)
         self.emit_planes = emit_planes
@@ -261,18 +138,12 @@ class BatchedWienerPipeline:
         self.rl_iters = rl_iters
         # border blend toward the circular blur (models/edgetaper.py)
         self.edgetaper = edgetaper
-        # >1: strided row-block sampling of the per-image WB L means
-        self.wb_stats_stride = wb_stats_stride
         self.psf_type = psf_type
         self._cache = {}
         self._img_cache = {}
 
     def _compiled(self, b: int, h: int, w: int, psf_length: int):
-        from fft_restoration_tpu.ops.pallas.fft_kernel import (
-            mxu_precision_token,
-        )
-
-        key = (b, h, w, psf_length, mxu_precision_token())
+        key = (b, h, w, psf_length)
         if key not in self._cache:
             self._cache[key] = jax.jit(
                 functools.partial(
@@ -280,8 +151,6 @@ class BatchedWienerPipeline:
                     psf_length=psf_length,
                     fft_backend=self.fft_backend,
                     filter_name=self.filter_name,
-                    fft_engine=self.fft_engine,
-                    stage_dtype=self.stage_dtype,
                     pad_mode=self.pad_mode,
                     rl_iters=self.rl_iters,
                     edgetaper=self.edgetaper,
@@ -317,11 +186,7 @@ class BatchedWienerPipeline:
             arr if arr.dtype == np.uint8
             else arr.astype(np.float32) / np.float32(255.0)
         )
-        from fft_restoration_tpu.ops.pallas.fft_kernel import (
-            mxu_precision_token,
-        )
-
-        key = (imgs.shape[:3], int(psf_length), mxu_precision_token())
+        key = (imgs.shape[:3], int(psf_length))
         if key not in self._img_cache:
             self._img_cache[key] = jax.jit(
                 functools.partial(
@@ -330,13 +195,10 @@ class BatchedWienerPipeline:
                     fft_backend=self.fft_backend,
                     filter_name=self.filter_name,
                     white_balance=self.white_balance,
-                    fft_engine=self.fft_engine,
                     emit_planes=self.emit_planes,
-                    stage_dtype=self.stage_dtype,
                     pad_mode=self.pad_mode,
                     rl_iters=self.rl_iters,
                     edgetaper=self.edgetaper,
-                    wb_stats_stride=self.wb_stats_stride,
                     psf_type=self.psf_type,
                 )
             )
@@ -369,9 +231,9 @@ def psf_grid_sweep(
     psf_lengths,
     psf_angles,
     K: float = 0.01,
-    fft_backend: str = "matmul",
+    fft_backend: str = DEFAULT_FFT_BACKEND,
 ) -> np.ndarray:
-    """(length, angle) PSF grid sweep on one image (BASELINE config 4).
+    """(length, angle) PSF grid sweep on one image.
 
     Angles are a traced vmap axis (one compile per distinct length, since
     length is a shape). Returns (n_lengths, n_angles, 3, H, W) planes.
@@ -384,10 +246,8 @@ def psf_grid_sweep(
 
     results = []
     angles = jnp.asarray(np.asarray(psf_angles, np.float32))
-    from fft_restoration_tpu.ops.pallas.fft_kernel import mxu_precision_token
-
     for length in psf_lengths:
-        key = (h, w, int(length), fft_backend, mxu_precision_token())
+        key = (h, w, int(length), fft_backend)
         if key not in _SWEEP_JIT_CACHE:
             _SWEEP_JIT_CACHE[key] = jax.jit(
                 functools.partial(

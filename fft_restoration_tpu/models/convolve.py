@@ -2,79 +2,23 @@
 
 utils/blurgen.py synthesizes every blurred input by spectral
 multiplication with the corner-anchored PSF, i.e. CIRCULAR convolution
-(/root/reference/others/gen_blurred_img.ipynb cell 1); this module is
-the forward operator of that model as a reusable device function. Both
+(reference others/gen_blurred_img.ipynb cell 1); this module is the
+forward operator of that model as a reusable device function. Both
 iterative restoration (models/richardson_lucy.py) and edge tapering
-(models/edgetaper.py) are built on it.
-
-TPU-native shape: everything is SoA (re, im) float32 planes. On the
-pallas path the PSF spectrum is computed ONCE in the kernels' native
-transposed/revorder scrambled order — the spectral multiply is
-elementwise so the scrambling cancels between forward and inverse (the
-ordering algebra of docs/MXU_ENGINE.md), and every spatial-domain
-result comes back in natural order.
+(models/edgetaper.py) are built on it. Everything is SoA (re, im)
+float32 planes (ops/fft.py).
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
 
-from fft_restoration_tpu.ops.fft import fft2d
+from fft_restoration_tpu.ops.fft import DEFAULT_FFT_BACKEND, fft2d
 
 
-def _conv_planes_pallas(re, im, s_re, s_im, engine, rad_h, rad_w):
+def _conv_planes(re, im, s_re, s_im, backend):
     """Circular convolution of independent real planes (re, im) with the
-    spectrum (s_re, s_im) in the transposed/scrambled pallas layout.
-    (..., Hp, Wp) in natural order -> (..., Hp, Wp) natural, scaled.
-
-    At megakernel-viable shapes the middle (colFFT + spectral multiply
-    + colIFFT) runs as ONE fused kernel (wiener_spectral_rows_t with
-    spectral_filter='conv'): 3 kernel passes per conv instead of 4, and
-    the 2D spectrum never round-trips HBM."""
-    from fft_restoration_tpu.models.pipeline import (
-        _spectral_megakernel_profitable,
-    )
-    from fft_restoration_tpu.ops.pallas.fft_kernel import fft_rows_pallas
-    from fft_restoration_tpu.ops.pallas.wiener_spectral import (
-        wiener_spectral_rows_t,
-    )
-
-    hp, wp = re.shape[-2:]
-    a_re, a_im = fft_rows_pallas(
-        re, im, False, ordering="revorder", transposed_output=True,
-        engine=engine, radices=rad_w,
-    )
-    r = None
-    if _spectral_megakernel_profitable(
-        a_re.shape[-2], a_re.shape[-1], engine, rad_h
-    ):
-        r = wiener_spectral_rows_t(
-            (a_re, a_im), (s_re, s_im), 0.0, engine=engine,
-            radices=rad_h, spectral_filter="conv",
-        )
-    if r is not None:
-        b_re, b_im = r
-    else:
-        a_re, a_im = fft_rows_pallas(
-            a_re, a_im, False, ordering="revorder", engine=engine,
-            radices=rad_h,
-        )
-        c_re = a_re * s_re - a_im * s_im
-        c_im = a_re * s_im + a_im * s_re
-        b_re, b_im = fft_rows_pallas(
-            c_re, c_im, True, ordering="revorder", transposed_output=True,
-            engine=engine, radices=rad_h,
-        )
-    b_re, b_im = fft_rows_pallas(
-        b_re, b_im, True, ordering="revorder", engine=engine, radices=rad_w
-    )
-    scale = jnp.float32(1.0 / (hp * wp))
-    return b_re * scale, b_im * scale
-
-
-def _conv_planes_generic(re, im, s_re, s_im, backend):
-    """Same contract via the natural-order fft2d backends (matmul's
-    four-step covers smooth extents; radix2/naive/xla likewise)."""
+    spectrum (s_re, s_im): (..., Hp, Wp) -> (..., Hp, Wp), scaled."""
     hp, wp = re.shape[-2:]
     a_re, a_im = fft2d(re, im, False, backend)
     c_re = a_re * s_re - a_im * s_im
@@ -89,58 +33,22 @@ def circular_conv_builder(
     hp: int,
     wp: int,
     *,
-    fft_backend: str = "matmul",
-    fft_engine: str = "mxu",
-    radices_hw=((), ()),
-    psf_rows: int | None = None,
-    psf_spectrum=None,
+    fft_backend: str = DEFAULT_FFT_BACKEND,
 ):
     """Build conv(re, im, conj=False) circularly convolving independent
     real (..., hp, wp) planes with the corner-anchored PSF (conj=True
     convolves with the mirrored PSF — conj(H) for a real kernel).
 
     The PSF spectrum is computed once at build (traced) time and closed
-    over — via pipeline.psf_spectrum_planes on the pallas path (the
-    canonical layout builder) — or passed in precomputed via
-    psf_spectrum=(H_re, H_im) in the matching backend layout (the
-    pipeline's fixed-PSF cache). Frames below one (8,128) tile reroute
-    pallas -> matmul, the same gate as restore_planes."""
-    rad_h, rad_w = radices_hw
-    pallas = fft_backend == "pallas" and min(hp, wp) >= 128
-    if fft_backend == "pallas" and not pallas:
-        fft_backend = "matmul"
-        psf_spectrum = None  # a pallas-layout spectrum can't be reused
+    over, so a loop around conv (RL, tiles) reuses it."""
+    from fft_restoration_tpu.models.pipeline import _pad2d
 
-    if pallas:
-        from fft_restoration_tpu.models.pipeline import psf_spectrum_planes
+    psf_pad = _pad2d(psf, hp, wp)
+    h_re, h_im = fft2d(psf_pad, jnp.zeros_like(psf_pad), False, fft_backend)
 
-        h_re, h_im = (
-            psf_spectrum
-            if psf_spectrum is not None
-            else psf_spectrum_planes(
-                psf, hp, wp, fft_engine, psf_rows, radices_hw=radices_hw
-            )
+    def conv(re, im, conj=False):
+        return _conv_planes(
+            re, im, h_re, (-h_im if conj else h_im), fft_backend
         )
-
-        def conv(re, im, conj=False):
-            return _conv_planes_pallas(
-                re, im, h_re, (-h_im if conj else h_im), fft_engine,
-                rad_h, rad_w,
-            )
-    else:
-        from fft_restoration_tpu.models.pipeline import _pad2d
-
-        if psf_spectrum is not None:
-            h_re, h_im = psf_spectrum
-        else:
-            psf_pad = _pad2d(psf, hp, wp)
-            h_re, h_im = fft2d(
-                psf_pad, jnp.zeros_like(psf_pad), False, fft_backend
-            )
-
-        def conv(re, im, conj=False):
-            return _conv_planes_generic(
-                re, im, h_re, (-h_im if conj else h_im), fft_backend
-            )
 
     return conv

@@ -26,6 +26,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from fft_restoration_tpu.models.convolve import circular_conv_builder
+from fft_restoration_tpu.ops.fft import DEFAULT_FFT_BACKEND
 from fft_restoration_tpu.utils.taper import taper_windows
 
 
@@ -34,11 +35,7 @@ def edge_taper_planes(
     psf: jnp.ndarray,
     live_hw: tuple[int, int],
     *,
-    fft_backend: str = "matmul",
-    fft_engine: str = "mxu",
-    radices_hw=((), ()),
-    psf_rows: int | None = None,
-    psf_spectrum=None,
+    fft_backend: str = DEFAULT_FFT_BACKEND,
 ) -> jnp.ndarray:
     """Taper (..., Hp, Wp) zero-padded float32 planes whose live image
     occupies the top-left live_hw = (h, w) extent. Returns planes of the
@@ -50,11 +47,7 @@ def edge_taper_planes(
     wy, wx = taper_windows(h, w, hp, wp, psf.shape[-1])
     alpha = jnp.asarray(wy)[:, None] * jnp.asarray(wx)[None, :]
 
-    conv = circular_conv_builder(
-        psf, hp, wp, fft_backend=fft_backend, fft_engine=fft_engine,
-        radices_hw=radices_hw, psf_rows=psf_rows,
-        psf_spectrum=psf_spectrum,
-    )
+    conv = circular_conv_builder(psf, hp, wp, fft_backend=fft_backend)
 
     packed = channels.ndim >= 3 and channels.shape[-3] >= 2
     if packed:

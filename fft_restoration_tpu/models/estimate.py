@@ -2,7 +2,7 @@
 
 The reference requires the user to KNOW the blur parameters — every
 driver takes <psf-length> <psf-angle> positionals
-(/root/reference/serial.cpp:12-18) and the fixtures' parameters are
+(reference serial.cpp:12-18) and the fixtures' parameters are
 documented in the README. This module removes that requirement: a
 linear motion blur of length L multiplies the image spectrum by a
 sinc-like transfer function whose periodic zeros put strong NEGATIVE
@@ -16,8 +16,8 @@ classic cepstral blur-identification result). Estimating (L, angle) is
 therefore: window the image, one FFT, log-power, one IFFT, argmin over
 an annulus.
 
-TPU-native: the whole estimator is ONE jit graph on the SoA fft2d
-backends (no complex dtype), with the Hann window and the annulus mask
+The whole estimator is ONE jit graph on the SoA fft2d backends, with
+the Hann window and the annulus mask
 baked as constants; only the final argmin index is converted to
 (length, angle) on the host. The y-down image convention mirrors the
 cepstral angle, so the returned angle is (-atan2) mod 180 — calibrated
@@ -34,7 +34,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from fft_restoration_tpu.ops.fft import fft2d
+from fft_restoration_tpu.ops.fft import DEFAULT_FFT_BACKEND, fft2d
 from fft_restoration_tpu.utils.padding import next_power_of_two
 
 
@@ -66,7 +66,7 @@ def _cepstral_peak(
     )[None, :]
     g = jnp.pad(g, ((0, hp - h), (0, wp - w)))
     f_re, f_im = fft2d(g, jnp.zeros_like(g), False, fft_backend)
-    # log2 instead of ln: same argmin (positive scale), native TPU unit
+    # log2 instead of ln: same argmin (positive scale)
     p = jnp.log2(f_re * f_re + f_im * f_im + jnp.float32(1e-12))
     c_re, _ = fft2d(p, jnp.zeros_like(p), True, fft_backend)
     c = jnp.roll(c_re, (hp // 2, wp // 2), axis=(0, 1))  # fftshift
@@ -89,7 +89,7 @@ _CONF_WARN = 14.0
 def estimate_motion_psf(
     img_bgr: np.ndarray,
     *,
-    fft_backend: str = "matmul",
+    fft_backend: str = DEFAULT_FFT_BACKEND,
     max_length: int | None = None,
 ) -> tuple[int, float, float]:
     """Estimate (length, angle_deg, confidence) of a linear motion blur
@@ -282,7 +282,7 @@ def _sector_ring_conf(
 def estimate_disk_psf(
     img_bgr: np.ndarray,
     *,
-    fft_backend: str = "matmul",
+    fft_backend: str = DEFAULT_FFT_BACKEND,
     max_size: int | None = None,
 ) -> tuple[int, float]:
     """Blind defocus-diameter estimation: (size, confidence).
@@ -364,7 +364,7 @@ _GAUSS_SIGMA_GRID = np.geomspace(0.5, 16.0, 33)
 
 
 def estimate_gaussian_psf(
-    img_bgr: np.ndarray, *, fft_backend: str = "matmul"
+    img_bgr: np.ndarray, *, fft_backend: str = DEFAULT_FFT_BACKEND
 ) -> tuple[float, float]:
     """Blind gaussian-blur sigma estimation: (sigma, confidence).
 

@@ -14,7 +14,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from fft_restoration_tpu.ops.wiener import wiener_filter, inverse_filter, cls_filter
-from fft_restoration_tpu.ops.fft import fft2d
+from fft_restoration_tpu.ops.fft import DEFAULT_FFT_BACKEND, fft2d
 
 
 def _laplacian_fft(shape, backend: str):
@@ -25,7 +25,7 @@ def _laplacian_fft(shape, backend: str):
     return fft2d(jnp.asarray(lap), jnp.zeros(shape, jnp.float32), backend=backend)
 
 
-def apply_filter(name: str, G, H, K, backend: str = "radix2"):
+def apply_filter(name: str, G, H, K, backend: str = DEFAULT_FFT_BACKEND):
     if name == "wiener":
         return wiener_filter(G, H, K)
     if name == "inverse":

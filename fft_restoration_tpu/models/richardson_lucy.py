@@ -1,4 +1,4 @@
-"""Richardson-Lucy iterative deconvolution (TPU-native).
+"""Richardson-Lucy iterative deconvolution.
 
 The reference family is one-shot spectral filters (Wiener everywhere,
 inverse/CLS in the lineage, others/fft_image_restoration.py); RL is the
@@ -11,20 +11,12 @@ with C = circular convolution (the framework's blur model: blurgen.py
 synthesizes inputs by spectral multiplication, i.e. circular
 convolution). In the frequency domain C(psf, .) is one fwd/inv FFT
 round trip times the PSF spectrum, and the mirrored-PSF convolution is
-the same round trip times conj(H) (real PSF). On the pallas path each
-conv is 3 kernel passes at megakernel-viable shapes — the middle
-(colFFT + multiply + colIFFT) is one fused kernel
-(ops/pallas/wiener_spectral.py spectral_filter='conv'), measured -25%
-RL device time at 2048²x3 (docs/PERF.md).
+the same round trip times conj(H) (real PSF).
 
-TPU-native design:
+Design:
   * the iteration is a `jax.lax.fori_loop` — one compiled body,
     constant graph size regardless of iteration count;
   * the PSF spectrum is hoisted out of the loop (computed once);
-  * all spectra live in the revorder/hybrid scrambled order of the
-    pallas kernel family: the two spectral multiplies per iteration
-    are elementwise (order-agnostic) and every spatial-domain quantity
-    comes back in natural order via the symmetric inverse;
   * channels ride complex pairs (models/pipeline._pack_channel_pairs):
     the convs are linear so re/im planes stay the two real channels,
     and RL's nonlinear steps (divide, multiply) are PLANE-wise spatial
@@ -32,8 +24,8 @@ TPU-native design:
     iteration. 3 channels = 2 complex FFT chains, exactly like Wiener.
 
 Nonexistent in the reference — cited against the family it extends
-(/root/reference/others/fft_image_restoration.py:45-92, the spectral
-restore prototype).
+(reference others/fft_image_restoration.py:45-92, the spectral restore
+prototype).
 """
 
 from __future__ import annotations
@@ -42,6 +34,7 @@ import jax
 import jax.numpy as jnp
 
 from fft_restoration_tpu.models.convolve import circular_conv_builder
+from fft_restoration_tpu.ops.fft import DEFAULT_FFT_BACKEND
 
 
 def richardson_lucy_planes(
@@ -50,11 +43,7 @@ def richardson_lucy_planes(
     n_iters: int = 10,
     *,
     eps: float = 1e-6,
-    fft_backend: str = "matmul",
-    fft_engine: str = "mxu",
-    radices_hw=((), ()),
-    psf_rows: int | None = None,
-    psf_spectrum=None,
+    fft_backend: str = DEFAULT_FFT_BACKEND,
 ) -> jnp.ndarray:
     """RL-deconvolve (..., Hp, Wp) padded planes with a (S, S) PSF.
 
@@ -90,13 +79,8 @@ def richardson_lucy_planes(
         channels = channels.astype(jnp.float32) / jnp.float32(255.0)
     hp, wp = channels.shape[-2:]
 
-    # PSF spectrum hoisted out of the loop; on the pallas path it rides
-    # the same transposed/revorder layout as the per-iteration spectra.
-    conv = circular_conv_builder(
-        psf, hp, wp, fft_backend=fft_backend, fft_engine=fft_engine,
-        radices_hw=radices_hw, psf_rows=psf_rows,
-        psf_spectrum=psf_spectrum,
-    )
+    # PSF spectrum hoisted out of the loop
+    conv = circular_conv_builder(psf, hp, wp, fft_backend=fft_backend)
 
     packed = channels.ndim >= 3 and channels.shape[-3] >= 2
     if packed:

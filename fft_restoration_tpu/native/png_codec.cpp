@@ -616,7 +616,7 @@ extern "C" int jpeg_backend_rgb(const int32_t* blocks, int64_t n_mcu,
 // one call per restart segment. Counterpart of the reference's single
 // cv::imread call (serial.cpp:22); the pure-Python loops ran ~0.3 MP/s
 // on a 2048x2048 progressive photo, these lanes restore batch-ingest
-// speed (see docs/PERF.md round-5 JPEG section).
+// speed.
 //
 // Shared conventions with jpeg_decode_scan: `data` is the
 // stuffing-stripped entropy segment; Huffman tables arrive as 65536-

@@ -19,11 +19,8 @@ _CBRT_A = 7.787
 _CBRT_B = 16.0 / 116.0
 
 
-# Every power is lowered as exp2(log2(x)*p): on the v5e VPU the native
-# base-2 transcendentals halve the cost of XLA's pow/cbrt lowerings
-# (L-mean pass 0.153 -> 0.072 ms device at 2048², docs/PERF.md round 3;
-# same result measured inside Mosaic kernels). exp2(log2(x)*p) agrees
-# with x**p to ~1 ulp; all branches that use it have x > 0.
+# Powers are written exp2(log2(x)*p), which agrees with x**p to ~1 ulp;
+# every branch that uses it has x > 0.
 
 
 def _pow2_pos(x, p):
@@ -47,83 +44,14 @@ def _f_cbrt(t):
     return jnp.where(t > _T0, _pow2_pos(t, 1.0 / 3.0), _CBRT_A * t + _CBRT_B)
 
 
-# ---------------------------------------------------------------------------
-# Fast companding: transcendental-free sRGB/Lab math.
-#
-# MEASURED NEGATIVE RESULT (docs/PERF.md): these approximations benched
-# SLOWER than the exact path on the v5e pipeline (2.067 vs 2.041 ms
-# device at 2048^2) — the VPU's exp/log transcendentals are already
-# cheap, and the color segment is bandwidth/fusion-bound. Kept (with
-# accuracy tests) as the recorded experiment: degree-10 polynomial of
-# u^0.4 evaluated in a [-1,1]-mapped variable (power coefficients in u
-# itself cancel catastrophically in f32), a bit-trick + two-Newton-step
-# reciprocal cube root, and hardware sqrt: x^(1/3) = x*rcbrt(x)^2 and
-# x^(1/2.4) = sqrt(x)*sqrt(sqrt(rcbrt(x))). Max |error| ~2e-5 in linear
-# space (<=0.25 uint8 counts through the full Lab round trip).
-
-# minimax-ish fit of u^0.4 over the companding branch's domain
-# u = (x + 0.055)/1.055, x in [0.04045, 1] -> u in [0.0905, 1].
-# The polynomial is fit and evaluated in t = map(u) in [-1, 1]: power
-# coefficients in u itself are huge (+-100) and cancel catastrophically
-# in float32.
-_U04_LO, _U04_HI = 0.0905, 1.0
-
-
-def _fit_u04():
-    u = np.linspace(_U04_LO, _U04_HI, 4096)
-    t = (2.0 * u - (_U04_LO + _U04_HI)) / (_U04_HI - _U04_LO)
-    return np.polyfit(t, u**0.4, 10).astype(np.float32)
-
-
-_U04_COEF = _fit_u04()
-
-
-def _rcbrt_fast(x):
-    """x^(-1/3) for x > 0: exponent bit trick + 2 Newton steps
-    (division-free: r <- r * (4 - x*r^3) / 3)."""
-    i = jax.lax.bitcast_convert_type(x.astype(jnp.float32), jnp.int32)
-    r = jax.lax.bitcast_convert_type(
-        jnp.int32(0x54A21D2A) - i // 3, jnp.float32
-    )
-    for _ in range(2):
-        r = r * (4.0 - x * r * r * r) * (1.0 / 3.0)
-    return r
-
-
-def _cbrt_fast(x):
-    x = jnp.maximum(x, 1e-30)
-    r = _rcbrt_fast(x)
-    return x * r * r
-
-
-def _f_cbrt_fast(t):
-    return jnp.where(t > _T0, _cbrt_fast(t), _CBRT_A * t + _CBRT_B)
-
-
-def _srgb_to_linear_fast(x):
-    u = (x + 0.055) * (1.0 / 1.055)
-    t = (2.0 * u - (_U04_LO + _U04_HI)) * (1.0 / (_U04_HI - _U04_LO))
-    poly = jnp.polyval(jnp.asarray(_U04_COEF), t)
-    return jnp.where(x <= 0.04045, x * (1.0 / 12.92), u * u * poly)
-
-
-def _linear_to_srgb_fast(x):
-    x = jnp.maximum(x, 0.0)
-    xs = jnp.maximum(x, 1e-30)
-    # x^(5/12) = sqrt(x) * x^(-1/12) = sqrt(x) * sqrt(sqrt(rcbrt(x)))
-    p = jnp.sqrt(xs) * jnp.sqrt(jnp.sqrt(_rcbrt_fast(xs)))
-    return jnp.where(x <= 0.0031308, 12.92 * x, 1.055 * p - 0.055)
-
-
 def bgr_to_lab(img_bgr: jnp.ndarray) -> jnp.ndarray:
     """float BGR in [0,1], (..., 3) -> Lab float32 (L in [0,100])."""
     # channel order is absorbed into the 3x3 constant (columns flipped)
-    # instead of reversing the image tensor: a device-trace showed each
-    # [..., ::-1] materializing as a full-image `rev` copy (~0.14 ms per
-    # 2048^2 frame) that XLA does not fuse away
+    # instead of reversing the image tensor, which XLA may materialize
+    # as a full-image `rev` copy
     lin = _srgb_to_linear(jnp.clip(img_bgr.astype(jnp.float32), 0.0, 1.0))
     m = jnp.asarray(np.asarray(_SRGB2XYZ_N, np.float32)[:, ::-1])
-    # HIGHEST: the default TPU matmul precision (bf16) costs ~0.1 L of
+    # HIGHEST: a reduced-precision (TF32/bf16) matmul costs ~0.1 L of
     # noise on a 3-wide contraction that is effectively free in f32
     t = jnp.matmul(lin, m.T, precision=jax.lax.Precision.HIGHEST)
     f = _f_cbrt(t)
@@ -157,19 +85,14 @@ def lab_to_bgr(lab: jnp.ndarray) -> jnp.ndarray:
 
 # ---------------------------------------------------------------------------
 # Planar variants: per-channel (H, W) planes instead of (..., 3)
-# interleaved tensors. On TPU an (H, W, 3) tensor puts 3 samples in a
-# 128-lane dimension — measured 4.1x slower for the identical math
-# (device trace: 1.459 vs 0.359 ms for bgr_to_lab on 2048^2).
+# interleaved tensors, so every load and store is a contiguous plane.
 # The pipeline works in planes end-to-end and interleaves once, at the
 # final uint8 conversion.
 
 
-def bgr_to_lab_planar(
-    b: jnp.ndarray, g: jnp.ndarray, r: jnp.ndarray, fast: bool = False
-):
+def bgr_to_lab_planar(b: jnp.ndarray, g: jnp.ndarray, r: jnp.ndarray):
     """(H, W) float BGR planes in [0,1] -> (L, a, b) float32 planes."""
-    to_lin = _srgb_to_linear_fast if fast else _srgb_to_linear
-    fc = _f_cbrt_fast if fast else _f_cbrt
+    to_lin, fc = _srgb_to_linear, _f_cbrt
     m = np.asarray(_SRGB2XYZ_N, np.float32)
     lb = to_lin(jnp.clip(b.astype(jnp.float32), 0.0, 1.0))
     lg = to_lin(jnp.clip(g.astype(jnp.float32), 0.0, 1.0))
@@ -187,11 +110,9 @@ def bgr_to_lab_planar(
     )
 
 
-def lab_to_bgr_planar(
-    L: jnp.ndarray, a: jnp.ndarray, b: jnp.ndarray, fast: bool = False
-):
+def lab_to_bgr_planar(L: jnp.ndarray, a: jnp.ndarray, b: jnp.ndarray):
     """(L, a, b) planes -> (b, g, r) float planes in [0,1]."""
-    to_srgb = _linear_to_srgb_fast if fast else _linear_to_srgb
+    to_srgb = _linear_to_srgb
     fy = (L.astype(jnp.float32) + 16.0) / 116.0
     fx = fy + a.astype(jnp.float32) / 500.0
     fz = fy - b.astype(jnp.float32) / 200.0
@@ -214,12 +135,9 @@ def lab_to_bgr_planar(
     return out
 
 
-def luminance_l_planar(
-    b: jnp.ndarray, g: jnp.ndarray, r: jnp.ndarray, fast: bool = False
-):
+def luminance_l_planar(b: jnp.ndarray, g: jnp.ndarray, r: jnp.ndarray):
     """Lab L plane only (the white-balance gain's input)."""
-    to_lin = _srgb_to_linear_fast if fast else _srgb_to_linear
-    fc = _f_cbrt_fast if fast else _f_cbrt
+    to_lin, fc = _srgb_to_linear, _f_cbrt
     m = np.asarray(_SRGB2XYZ_N, np.float32)
     lb = to_lin(jnp.clip(b.astype(jnp.float32), 0.0, 1.0))
     lg = to_lin(jnp.clip(g.astype(jnp.float32), 0.0, 1.0))

@@ -1,6 +1,6 @@
 """Motion-blur PSF synthesis in jnp (traceable, vmappable over angle).
 
-TPU-native counterpart of motionBlurKernel (/root/reference/utils.hpp:15-24):
+Counterpart of motionBlurKernel (reference utils.hpp:15-24):
 horizontal line of 1/size through (size/2, size/2), rotated by a
 getRotationMatrix2D affine with exact inverse-map bilinear sampling
 (constant-0 border), NOT re-normalized — matching the oracle
@@ -8,7 +8,7 @@ getRotationMatrix2D affine with exact inverse-map bilinear sampling
 
 `size` is static (shapes); `angle_deg` may be a traced scalar, so the
 PSF can live inside a jit graph and be vmapped for (length, angle) grid
-sweeps (BASELINE.json config 4).
+sweeps.
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ Counterpart of the Wiener block in every reference mode — e.g. the
 whole-Mat serial version (fft_serial.cpp:185-224), the AVX2 one
 (fft_simd.cpp:328-372), and the CUDA wiener_kernel (fft_gpu.cu:169-181).
 Operands are (re, im) float32 plane pairs (see ops/fft.py docstring for
-why SoA). Pure elementwise math; XLA fuses it with the surrounding FFT
-stages, and ops/pallas/wiener.py provides the hand-fused Pallas version.
+why SoA). Pure elementwise math; XLA fuses it into one elementwise kernel between
+the forward and inverse FFT calls.
 
 With G = gr + i*gi, H = hr + i*hi:
     G * conj(H) = (gr*hr + gi*hi) + i*(gi*hr - gr*hi)

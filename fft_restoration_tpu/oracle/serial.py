@@ -1,8 +1,8 @@
 """Pure-NumPy serial oracle for the Wiener deblur pipeline.
 
-This is the semantic ground truth every TPU mode verifies against — the
-same role `fft_serial` plays for every parallel driver in the reference
-(SURVEY.md §4, /root/reference/fft/fft_serial.cpp).
+This is the semantic ground truth every device mode verifies against —
+the same role `fft_serial` plays for every parallel driver in the
+reference (SURVEY.md §4, reference fft/fft_serial.cpp).
 
 Numerical fidelity notes (all mirror fft_serial.cpp):
   * complex64 (float32 re/im) throughout.

@@ -1,21 +1,24 @@
 """Device mesh construction.
 
-TPU-native replacement for the reference's MPI_COMM_WORLD setup
-(/root/reference/mpi.cpp:39-47, fft/fft_mpi.cpp:318-323): a 1D
-`jax.sharding.Mesh` over the 'rows' axis. Row-block distribution with
-SPMD closure constants replaces MPI_Bcast of dims
-(fft_mpi.cpp:334-337); NamedSharding placement replaces
-Scatterv/Gatherv (fft_mpi.cpp:372-378,436-438).
+Replacement for the reference's MPI_COMM_WORLD setup (reference
+mpi.cpp:39-47, fft/fft_mpi.cpp:318-323): a 1D `jax.sharding.Mesh` over
+the 'rows' axis. Row-block distribution with SPMD closure constants
+replaces MPI_Bcast of dims (fft_mpi.cpp:334-337); NamedSharding
+placement replaces Scatterv/Gatherv (fft_mpi.cpp:372-378,436-438).
 
-On hardware the mesh rides ICI within a slice; in tests it is 8 virtual
+Meshes are built from the default platform's devices only: on a GPU
+host the mesh is its cards (NVLink all to all); in tests it is 8 virtual
 CPU devices (xla_force_host_platform_device_count), mirroring how the
 reference validates MPI modes with oversubscribed local ranks
-(README.md:55).
+(README.md:55). Too few devices is an error, never a silent switch to
+another platform.
 """
 
 from __future__ import annotations
 
 from typing import Optional
+
+import numpy as np
 
 import jax
 from jax.sharding import Mesh
@@ -24,59 +27,34 @@ ROWS_AXIS = "rows"
 BATCH_AXIS = "batch"
 
 
-def make_mesh(n_devices: Optional[int] = None, platform: Optional[str] = None) -> Mesh:
-    """1D mesh over the first n devices (all by default).
-
-    Prefers the requested platform's devices; falls back to CPU when the
-    default platform can't supply n_devices (e.g. single-chip TPU + a
-    virtual CPU mesh for multi-chip dry runs).
-    """
-    if platform is not None:
-        devices = jax.devices(platform)
-    else:
-        devices = jax.devices()
-        if n_devices is not None and len(devices) < n_devices:
-            try:
-                cpus = jax.devices("cpu")
-            except RuntimeError:
-                cpus = []
-            if len(cpus) >= n_devices:
-                devices = cpus
-    if n_devices is not None:
-        if len(devices) < n_devices:
-            raise ValueError(
-                f"need {n_devices} devices, have {len(devices)} "
-                f"({[d.platform for d in devices]})"
-            )
-        devices = devices[:n_devices]
-    return Mesh(devices, (ROWS_AXIS,))
+def _devices(n: Optional[int]) -> list:
+    devices = jax.devices()
+    if n is None:
+        return devices
+    if len(devices) < n:
+        raise ValueError(
+            f"need {n} devices, the default platform "
+            f"{jax.default_backend()!r} has {len(devices)}"
+        )
+    return devices[:n]
 
 
-def make_mesh2d(
-    n_batch: int, n_rows: int, platform: Optional[str] = None
-) -> Mesh:
+def make_mesh(n_devices: Optional[int] = None) -> Mesh:
+    """1D mesh over the first n devices of the default platform (all by
+    default)."""
+    return Mesh(_devices(n_devices), (ROWS_AXIS,))
+
+
+def make_mesh2d(n_batch: int, n_rows: int) -> Mesh:
     """2D (batch, rows) mesh: images data-parallel over 'batch', each
     image's rows sharded over 'rows'.
 
     The FFT collectives (all_to_all transposes, pmin/pmax normalize) run
     only over the 'rows' axis; 'batch' needs no communication at all —
-    the TPU counterpart of running several independent mpirun groups
+    the counterpart of running several independent mpirun groups
     (fft_mpi.cpp:89-100 distributes rows within ONE communicator; the
-    reference has no batch axis). On hardware, lay 'rows' on the faster
-    ICI dimension and 'batch' across the slower one/DCN.
+    reference has no batch axis). Every card of a host reaches every
+    other at the same NVLink rate, so the mesh follows the algorithm.
     """
-    import numpy as np
-
-    n = n_batch * n_rows
-    devices = jax.devices(platform) if platform else jax.devices()
-    if len(devices) < n:
-        try:
-            cpus = jax.devices("cpu")
-        except RuntimeError:
-            cpus = []
-        if len(cpus) >= n:
-            devices = cpus
-    if len(devices) < n:
-        raise ValueError(f"need {n} devices, have {len(devices)}")
-    grid = np.asarray(devices[:n]).reshape(n_batch, n_rows)
+    grid = np.asarray(_devices(n_batch * n_rows)).reshape(n_batch, n_rows)
     return Mesh(grid, (BATCH_AXIS, ROWS_AXIS))

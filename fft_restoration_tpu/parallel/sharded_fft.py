@@ -1,12 +1,12 @@
 """Row-sharded distributed 2D FFT with all-to-all transposes.
 
-TPU-native re-design of the reference's MPI distributed FFT
-(/root/reference/fft/fft_mpi.cpp:284-307): rows are block-sharded over
+Re-design of the reference's MPI distributed FFT
+(reference fft/fft_mpi.cpp:284-307): rows are block-sharded over
 ranks, 1D FFTs are rank-local, and the two global transposes are
 realized as collective exchanges. Where MPI packs per-destination tiles
 by hand and calls MPI_Alltoallv (fft_mpi.cpp:170-279), here a single
 `jax.lax.all_to_all` over the mesh axis does the reshard and XLA emits
-the ICI collective — the pack/unpack tiling the reference hand-writes
+the collective (NCCL over NVLink on a GPU host) — the pack/unpack tiling the reference hand-writes
 (TILE_SIZE=32 blocking, fft_mpi.cpp:204-278) is the compiler's job.
 
 This is structurally Ulysses-style all-to-all sequence parallelism
@@ -24,7 +24,7 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 
-from fft_restoration_tpu.ops.fft import fft1d
+from fft_restoration_tpu.ops.fft import DEFAULT_FFT_BACKEND, fft1d
 from fft_restoration_tpu.parallel.mesh import ROWS_AXIS
 
 SoA = Tuple[jnp.ndarray, jnp.ndarray]
@@ -49,47 +49,19 @@ def _reshard_cols_to_rows(x: jnp.ndarray, axis_name: str) -> jnp.ndarray:
     )
 
 
-def _fft_true(
-    re, im, inverse: bool, backend: str, true_n: int | None,
-    conv_layout: bool = False, engine: str = "mxu", radices: tuple = (),
-) -> SoA:
+def _fft_true(re, im, inverse: bool, backend: str, true_n: int | None) -> SoA:
     """1D DFT over the last axis at its TRUE length.
 
     Non-power-of-two meshes pad the global dims to device-count
     multiples so shard_map/all_to_all get even splits — but the DFT must
-    still run at the pow2 extent to preserve oracle parity. The trailing
-    layout padding is sliced off before the transform and zero-refilled
-    after (zeros in = zeros out for the padded rows, so the pad region
-    stays zero through the whole restore).
-
-    radices: mixed-radix cross-DFT levels when true_n is a smooth
-    (odd*2^k) extent — pad_mode='smooth' sharded restores. The pallas
-    conv_layout path threads them into its kernels; the matmul backend's
-    four-step handles composite lengths natively (ops/fft.py).
-
-    conv_layout=True (the _conv_fwd/_conv_inv callers, whose spectra
-    only ever feed order-agnostic elementwise filters): the pallas
-    backend runs revorder + the MXU-hybrid engine — no bit-reversal
-    passes and matmul butterflies, exactly like the single-chip fused
-    path (≙ the reference's mpi_simd mode reusing the simd row kernels,
-    fft_mpi_simd.cpp:471-629)."""
-
-    def one(r, i):
-        if conv_layout and backend == "pallas":
-            from fft_restoration_tpu.ops.pallas.fft_kernel import (
-                fft_rows_pallas,
-            )
-
-            return fft_rows_pallas(
-                r, i, inverse, ordering="revorder", engine=engine,
-                radices=radices,
-            )
-        return fft1d(r, i, inverse, backend)
-
+    still run at the pow2 (or smooth) extent to preserve oracle parity.
+    The trailing layout padding is sliced off before the transform and
+    zero-refilled after (zeros in = zeros out for the padded rows, so the
+    pad region stays zero through the whole restore)."""
     n_pad = re.shape[-1]
     if true_n is None or true_n == n_pad:
-        return one(re, im)
-    re_t, im_t = one(re[..., :true_n], im[..., :true_n])
+        return fft1d(re, im, inverse, backend)
+    re_t, im_t = fft1d(re[..., :true_n], im[..., :true_n], inverse, backend)
     pad = [(0, 0)] * (re.ndim - 1) + [(0, n_pad - true_n)]
     return jnp.pad(re_t, pad), jnp.pad(im_t, pad)
 
@@ -97,12 +69,10 @@ def _fft_true(
 def sharded_fft2d_conv_fwd(
     re: jnp.ndarray,
     im: jnp.ndarray,
-    backend: str = "matmul",
+    backend: str = DEFAULT_FFT_BACKEND,
     axis_name: str = ROWS_AXIS,
     true_w: int | None = None,
     true_h: int | None = None,
-    engine: str = "mxu",
-    radices_hw: tuple = ((), ()),
 ) -> SoA:
     """Forward 2D DFT that STOPS in the transposed, column-sharded
     layout: local block (..., H/D, W) -> spectrum block (..., W/D, H).
@@ -118,49 +88,39 @@ def sharded_fft2d_conv_fwd(
     PAPERS.md arXiv:1406.5597).
 
     true_w/true_h: logical (pow2 or smooth) extents when the global
-    layout is padded for a non-power-of-two mesh (see _fft_true);
-    radices_hw = (radices_h, radices_w) mixed-radix levels for smooth
-    extents.
+    layout is padded for a non-power-of-two mesh (see _fft_true).
     """
-    rad_h, rad_w = radices_hw
-    re, im = _fft_true(re, im, False, backend, true_w, conv_layout=True,
-                       engine=engine, radices=rad_w)
+    re, im = _fft_true(re, im, False, backend, true_w)
     re = _reshard_rows_to_cols(re, axis_name)
     im = _reshard_rows_to_cols(im, axis_name)
     re = jnp.swapaxes(re, -1, -2)
     im = jnp.swapaxes(im, -1, -2)
-    return _fft_true(re, im, False, backend, true_h, conv_layout=True,
-                     engine=engine, radices=rad_h)
+    return _fft_true(re, im, False, backend, true_h)
 
 
 def sharded_fft2d_conv_inv(
     re: jnp.ndarray,
     im: jnp.ndarray,
-    backend: str = "matmul",
+    backend: str = DEFAULT_FFT_BACKEND,
     axis_name: str = ROWS_AXIS,
     true_w: int | None = None,
     true_h: int | None = None,
-    engine: str = "mxu",
-    radices_hw: tuple = ((), ()),
 ) -> SoA:
     """Inverse of sharded_fft2d_conv_fwd: spectrum block (..., W/D, H)
     -> spatial block (..., H/D, W), unscaled. One all_to_all."""
-    rad_h, rad_w = radices_hw
-    re, im = _fft_true(re, im, True, backend, true_h, conv_layout=True,
-                       engine=engine, radices=rad_h)
+    re, im = _fft_true(re, im, True, backend, true_h)
     re = jnp.swapaxes(re, -1, -2)
     im = jnp.swapaxes(im, -1, -2)
     re = _reshard_cols_to_rows(re, axis_name)
     im = _reshard_cols_to_rows(im, axis_name)
-    return _fft_true(re, im, True, backend, true_w, conv_layout=True,
-                     engine=engine, radices=rad_w)
+    return _fft_true(re, im, True, backend, true_w)
 
 
 def sharded_fft2d(
     re: jnp.ndarray,
     im: jnp.ndarray,
     inverse: bool = False,
-    backend: str = "matmul",
+    backend: str = DEFAULT_FFT_BACKEND,
     axis_name: str = ROWS_AXIS,
 ) -> SoA:
     """2D DFT of a row-sharded SoA plane, inside shard_map.

@@ -823,9 +823,11 @@ def parse_frame_header(
             h.cdef_y_pri.append(r.f(4))
             v = r.f(2)
             h.cdef_y_sec.append(v + (v == 3))
-            h.cdef_uv_pri.append(r.f(4))
-            v = r.f(2)
-            h.cdef_uv_sec.append(v + (v == 3))
+            # chroma strengths are coded only when chroma planes exist
+            if seq.num_planes > 1:
+                h.cdef_uv_pri.append(r.f(4))
+                v = r.f(2)
+                h.cdef_uv_sec.append(v + (v == 3))
     # lr_params()
     if not (h.all_lossless or h.allow_intrabc) and seq.enable_restoration:
         kinds = []

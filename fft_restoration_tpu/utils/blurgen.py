@@ -50,6 +50,51 @@ def blur_image(
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
+def synthetic_scene(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """Sharp uint8 BGR (h, w, 3) test scene made from a seed: smooth
+    colour gradients, a low-frequency wave field, flat-coloured
+    rectangles and discs with hard edges, a fine stripe patch and mild
+    sensor noise — the mix of edges and texture a motion-blur restore
+    has to bring back. Deterministic for a given (h, w, seed)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    u, v = xx / max(w - 1, 1), yy / max(h - 1, 1)
+    img = np.empty((h, w, 3))
+    for c in range(3):
+        a, b, f1, f2 = rng.uniform(-1, 1, 4)
+        img[..., c] = (
+            110 + 60 * a * u + 60 * b * v
+            + 25 * np.sin(2 * np.pi * (1 + 3 * abs(f1)) * u + 6 * f2)
+            * np.cos(2 * np.pi * (1 + 2 * abs(f2)) * v)
+        )
+    side = min(h, w)
+    for _ in range(14):
+        color = rng.uniform(0, 255, 3)
+        y0, x0 = rng.uniform(0, h), rng.uniform(0, w)
+        r = rng.uniform(0.03, 0.18) * side
+        if rng.random() < 0.5:
+            m = (abs(yy - y0) < r) & (abs(xx - x0) < r * rng.uniform(0.5, 2))
+        else:
+            m = (yy - y0) ** 2 + (xx - x0) ** 2 < r * r
+        img[m] = color
+    # fine stripes: high-frequency detail the blur wipes out
+    sy, sx = int(0.6 * h), int(0.1 * w)
+    patch = img[sy : sy + h // 5, sx : sx + w // 4]
+    patch[..., :] = np.where(
+        (np.arange(patch.shape[1]) // 3) % 2, 230.0, 30.0
+    )[None, :, None]
+    img += rng.normal(0.0, 2.0, img.shape)
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+def blurred_scene(
+    h: int, w: int, psf_length: int, psf_angle: float, seed: int = 0
+) -> np.ndarray:
+    """synthetic_scene(h, w, seed) motion-blurred with PSF(length, angle):
+    the seed-generated stand-in for a blurred photo."""
+    return blur_image(synthetic_scene(h, w, seed), psf_length, psf_angle)
+
+
 def make_fixture(
     src_path: str, dst_path: str, psf_length: int, psf_angle: float
 ) -> None:

@@ -386,8 +386,7 @@ def _decode_progressive(scans, comps, by_id, h, w, hmax, vmax, mcux, mcuy):
 
     The per-block band/approximation bit loops run in C++ when the
     native lane is built (native/png_codec.cpp jpeg_decode_prog_dc/_ac,
-    ~45x the pure path on a 2048^2 progressive photo — docs/PERF.md
-    round 5); the pure-Python loops below are the always-working
+    a host-side speedup on progressive photos); the pure-Python loops below are the always-working
     fallback and the parity oracle. cv::imread accepts these streams
     (serial.cpp:22)."""
     from fft_restoration_tpu.utils.imageio import _load_native

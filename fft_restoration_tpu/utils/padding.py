@@ -1,6 +1,6 @@
 """Power-of-two padding helpers.
 
-TPU-native counterpart of the reference's header-only utilities
+Counterpart of the reference's header-only utilities
 (/root/reference/utils.hpp:27-52 — nextPowerOfTwo, autoPadToPowerOfTwo,
 isPowerOfTwo). Pure shape logic runs on the host; the actual zero-pad is
 done inside the jit graph (models/pipeline.py:_pad2d) so XLA can fuse it.
@@ -24,34 +24,29 @@ def next_power_of_two(n: int) -> int:
     return p
 
 
-# Odd factors the mixed-radix pallas engine supports (as products of
-# radix-3/5 cross-DFT levels, ops/pallas/fft_kernel.py). Per octave the
-# reachable sizes are {1, 9/8, 5/4, 3/2, 15/8, 2}·2^k — worst-case pad
-# waste 25% instead of pow2's 100%.
-_SMOOTH_ODD_RADICES = {3: (3,), 5: (5,), 9: (3, 3), 15: (3, 5)}
+# Odd factors of the "smooth" pad extents: per octave the reachable sizes
+# are {1, 9/8, 5/4, 3/2, 15/8, 2}·2^k — worst-case pad waste 25% instead
+# of pow2's 100%. Every one is a 2/3/5-smooth length, which cuFFT (and
+# the matmul backend's four-step) transform at O(n log n).
+_SMOOTH_ODD_FACTORS = (3, 5, 9, 15)
 
 
-def next_smooth_size(n: int, min_q: int = 128) -> tuple:
+def next_smooth_size(n: int, min_q: int = 128) -> int:
     """Smallest s >= n of the form odd * 2^k with odd in {1,3,5,9,15}
-    and 2^k >= min_q, as (s, radices). radices is the tuple of odd
-    cross-DFT radices (outermost first) the mixed-radix kernels need;
-    () means s is a plain power of two.
+    and 2^k >= min_q.
 
-    min_q=128: the pallas kernels' inner pow2 extent must stay
-    lane-aligned (one (8,128) vreg) on hardware, so smaller frames keep
-    the pow2 pad (they are fast regardless). The reference has no
-    counterpart — it always pads to pow2 (utils.hpp:40-47) and pays up
-    to 2x the pixels (e.g. UHD 2160 -> 4096); its only non-pow2 path is
-    the O(n^2) naive DFT (fft_serial.cpp:71-87).
+    Frames below min_q keep the pow2 pad (they are fast regardless). The
+    reference has no counterpart — it always pads to pow2
+    (utils.hpp:40-47) and pays up to 2x the pixels (e.g. UHD 2160 ->
+    4096); its only non-pow2 path is the O(n^2) naive DFT
+    (fft_serial.cpp:71-87).
     """
-    best = (next_power_of_two(n), ())
-    for odd, radices in _SMOOTH_ODD_RADICES.items():
+    best = next_power_of_two(n)
+    for odd in _SMOOTH_ODD_FACTORS:
         q = min_q
         while odd * q < n:
             q <<= 1
-        s = odd * q
-        if s < best[0]:
-            best = (s, radices)
+        best = min(best, odd * q)
     return best
 
 

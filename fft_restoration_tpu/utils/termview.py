@@ -2,7 +2,7 @@
 imshow/waitKey display step (/root/reference/serial.cpp:59-60).
 
 The reference ends every driver with `cv::imshow` + `cv::waitKey(0)`.
-A TPU host is headless, so the idiomatic equivalent is an in-terminal
+An accelerator host is headless, so the idiomatic equivalent is an in-terminal
 render: each character cell shows two vertical pixels via the upper
 half block (U+2580) with 24-bit ANSI foreground (top pixel) and
 background (bottom pixel) colors. `show_image` prints the render and,

@@ -9,7 +9,7 @@ Recreates the reference's three ad-hoc timing mechanisms as one component:
 Phase taxonomy preserved from fft_serial.cpp:158-236:
   Pre-process / FFT Image / FFT PSF / Wiener Filter / IFFT / Post-process.
 
-On TPU, dispatch is async — a phase timer is only meaningful if the traced
+On an accelerator, dispatch is async — a phase timer is only meaningful if the traced
 value is materialized, so `Phase` takes an optional `block_on` pytree and
 calls block_until_ready() on exit. For fully-fused jit pipelines (where
 per-phase timing is impossible by design — XLA fuses the phases), use
@@ -45,7 +45,7 @@ def _block(tree: Any) -> None:
 class PhaseProfiler:
     """Accumulates per-phase milliseconds across calls (like g_timeAccum)."""
 
-    def __init__(self, mode: str = "tpu"):
+    def __init__(self, mode: str = "jit"):
         self.mode = mode
         self.accum_ms: "OrderedDict[str, float]" = OrderedDict()
 

@@ -8,7 +8,7 @@ an in-process serial oracle with one of three tolerance tiers
   * NORM_INF (max abs diff) <= 1e-3 (openmp.cpp:27-33)
   * NORM_INF <= 1e-3 OR PSNR >= 30 dB relaxed pass (gpu.cpp:28-52)
 
-This module reproduces all three tiers so the TPU drivers can verify the
+This module reproduces all three tiers so the device drivers can verify the
 same way, plus a structured report for the CLI.
 """
 

@@ -1,18 +1,18 @@
 """Executable-cache warmup for serving deployments.
 
-First compilation of a pipeline shape costs seconds (XLA) to minutes
-(Mosaic kernels); a serving process should not pay that on its first
-request. This tool pre-compiles the restoration graph for a list of
-frame geometries into the persistent compilation cache
-(FFT_RESTORATION_CACHE, see cli._enable_compile_cache), so subsequent
-CLI/server processes start warm.
+First compilation of a pipeline shape costs seconds; a serving process
+should not pay that on its first request. This tool pre-compiles the
+restoration graph for a list of frame geometries into the persistent
+compilation cache (JAX_COMPILATION_CACHE_DIR if set, else the checkout's
+.jax_cache — see cli._compile_cache_dir), so subsequent CLI/server
+processes start warm.
 
 Shapes are HEIGHTxWIDTH (matching numpy/jnp array order). The cat
 fixture (1920 wide, 782 tall) is warmed as `782x1920`.
 
 Usage:
     python -m fft_restoration_tpu.warmup 2048x2048 782x1920 --psf-length 50
-    python -m fft_restoration_tpu.warmup 330x640 --backend pallas --sharded 8
+    python -m fft_restoration_tpu.warmup 330x640 --sharded 4
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import sys
 import time
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fft_restoration_tpu.warmup")
     p.add_argument(
         "shapes",
@@ -31,10 +31,10 @@ def main(argv=None) -> int:
         "782x1920 for a 1920-wide 782-tall frame)",
     )
     p.add_argument("--psf-length", type=int, default=50)
+    from fft_restoration_tpu.ops.fft import DEFAULT_FFT_BACKEND, FFT_BACKENDS
+
     p.add_argument(
-        "--backend",
-        choices=("radix2", "matmul", "naive", "xla", "pallas"),
-        default="matmul",
+        "--backend", choices=FFT_BACKENDS, default=DEFAULT_FFT_BACKEND
     )
     p.add_argument("--filter", choices=("wiener", "inverse", "cls"), default="wiener")
     p.add_argument(
@@ -44,7 +44,11 @@ def main(argv=None) -> int:
         metavar="N",
         help="also warm the N-device sharded pipeline",
     )
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     from fft_restoration_tpu.cli import _enable_compile_cache
 

@@ -1,6 +1,6 @@
 """AV1/AVIF decoder tests: container + header parse (phase A) against
 streams written by this environment's OpenCV 5.0 (libavif/libaom) —
-the cv::imread surface of /root/reference/serial.cpp:22."""
+the cv::imread surface of the reference's serial.cpp:22."""
 
 import cv2
 import numpy as np
@@ -94,15 +94,15 @@ class TestHeaders:
         assert (seq.subsampling_x, seq.subsampling_y) == (0, 0)
         assert hdr.loop_filter_level == (0, 0, 0, 0)
 
-    def test_quality_sweep_parses(self):
-        img = cv2.imread("/root/reference/input/car_blurred.png")[:80, :112]
+    def test_quality_sweep_parses(self, car_png):
+        img = cv2.imread(car_png)[:80, :112]
         for q in (0, 15, 40, 75, 95, 100):
             _, seq, hdr = _headers(_enc(img, q))
             assert (hdr.width, hdr.height) == (112, 80)
             assert hdr.header_bitpos % 8 == 0
 
-    def test_big_fixture(self):
-        img = cv2.imread("/root/reference/input/cat_blurred.png")
+    def test_big_fixture(self, cat_png):
+        img = cv2.imread(cat_png)
         _, seq, hdr = _headers(_enc(img))
         assert (hdr.width, hdr.height) == (1920, 782)
         assert hdr.mi_cols == 480 and hdr.mi_rows == 196
@@ -188,11 +188,11 @@ class TestTileDecode:
         for ours, theirs in zip(planes, ref):
             np.testing.assert_array_equal(ours, theirs)
 
-    def test_bottom_edge_overhang(self):
+    def test_bottom_edge_overhang(self, car_png):
         # 330 % 8 != 0: the mi-grid overhang is NOT deblocked (dav1d
         # f->h4 semantics) and feeds CDEF's direction search
         oracle = _dav1d()
-        img = cv2.imread("/root/reference/input/car_blurred.png")
+        img = cv2.imread(car_png)
         data = _enc(img, 30)
         planes, _ = _decode_planes(data)
         ref, _, _ = oracle.decode_yuv(
@@ -204,10 +204,10 @@ class TestTileDecode:
 
 class TestAvifRGB:
     @pytest.mark.parametrize("q", [30, 75, 90, 100])
-    def test_bit_exact_vs_cv2(self, q):
+    def test_bit_exact_vs_cv2(self, q, car_png):
         from fft_restoration_tpu.utils.av1 import decode_avif
 
-        img = cv2.imread("/root/reference/input/car_blurred.png")
+        img = cv2.imread(car_png)
         data = _enc(img, q)
         ours = decode_avif(data)
         ref = cv2.imdecode(
@@ -227,11 +227,11 @@ class TestAvifRGB:
         )
         np.testing.assert_array_equal(ours[..., ::-1], ref)
 
-    def test_gray_bit_exact(self):
+    def test_gray_bit_exact(self, car_png):
         from fft_restoration_tpu.utils.av1 import decode_avif
 
         img = cv2.cvtColor(
-            cv2.imread("/root/reference/input/car_blurred.png"),
+            cv2.imread(car_png),
             cv2.COLOR_BGR2GRAY,
         )
         data = _enc(img, 60)
@@ -242,11 +242,24 @@ class TestAvifRGB:
         assert ours.ndim == 2
         np.testing.assert_array_equal(ours, ref)
 
-    def test_alpha_bit_exact(self):
+    @pytest.mark.parametrize("q", [30, 60, 90])
+    def test_gray_flat_bit_exact(self, q):
+        # a flat lossy monochrome frame codes CDEF strengths for luma
+        # only; reading chroma strengths too misaligns the header
+        from fft_restoration_tpu.utils.av1 import decode_avif
+
+        data = _enc(np.full((64, 64), 128, np.uint8), q)
+        ours = decode_avif(data)
+        ref = cv2.imdecode(
+            np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED
+        )
+        np.testing.assert_array_equal(ours, ref)
+
+    def test_alpha_bit_exact(self, car_png):
         from fft_restoration_tpu.utils.av1 import decode_avif
 
         img = cv2.cvtColor(
-            cv2.imread("/root/reference/input/car_blurred.png"),
+            cv2.imread(car_png),
             cv2.COLOR_BGR2BGRA,
         )
         img[..., 3] = 200
@@ -258,10 +271,10 @@ class TestAvifRGB:
         assert ours.shape[2] == 4
         np.testing.assert_array_equal(ours[..., [2, 1, 0, 3]], ref)
 
-    def test_imread_dispatch(self, tmp_path):
+    def test_imread_dispatch(self, tmp_path, car_png):
         from fft_restoration_tpu.utils.imageio import imread
 
-        img = cv2.imread("/root/reference/input/car_blurred.png")
+        img = cv2.imread(car_png)
         p = tmp_path / "x.avif"
         p.write_bytes(_enc(img, 70))
         ours = imread(str(p))

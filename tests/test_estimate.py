@@ -81,13 +81,15 @@ def test_estimate_cli_blind_mode(tmp_path, rng):
     assert rc == 0 and dst.exists()
 
 
-def test_estimate_confidence_separates_sharp(rng):
+def test_estimate_confidence_separates_sharp():
     """The z-score confidence flags frames with no linear blur: a sharp
     structured scene scores below _CONF_WARN, its blurred version far
     above (measured ~10 vs 18-69; fixtures 50-55)."""
     from fft_restoration_tpu.models.estimate import _CONF_WARN
 
-    sharp = _scene(rng)
+    # a fixed scene: the shared session rng's state depends on which
+    # tests ran before this one, and the sharp score moves with the noise
+    sharp = _scene(np.random.default_rng(0))
     _, _, c_sharp = estimate_motion_psf(sharp)
     _, _, c_blur = estimate_motion_psf(blur_image(sharp, 25, 60.0))
     assert c_sharp < _CONF_WARN < c_blur, (c_sharp, c_blur)
@@ -109,7 +111,7 @@ def test_cli_rejects_bad_iters(tmp_path, rng):
     src = tmp_path / "in.png"
     imwrite(str(src), (rng.random((32, 32, 3)) * 255).astype(np.uint8))
     assert main([str(src), "5", "30", "--filter", "rl", "--iters", "0"]) == 2
-    assert main([str(src), "5", "30", "--wb-stride", "0"]) == 2
+    assert main([str(src), "0", "30"]) == 2
 
 
 def test_estimate_cli_directory_mode(tmp_path, rng):

@@ -51,7 +51,7 @@ def test_non_pow2_falls_back_to_naive(rng):
 
 
 def test_matches_oracle_radix2(rng):
-    """TPU radix2 (exact tables) vs oracle (recurrence twiddles): same
+    """radix2 backend (exact tables) vs oracle (recurrence twiddles): same
     transform within the reference's own cross-mode tolerance tiers."""
     n = 256
     x = (rng.standard_normal((4, n)) + 1j * rng.standard_normal((4, n))).astype(

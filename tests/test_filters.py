@@ -70,16 +70,15 @@ def test_sharded_profile_phases(rng):
 
 
 @pytest.mark.parametrize("filter_name", ["inverse", "cls"])
-def test_pallas_fused_path_serves_all_filters(rng, filter_name):
-    """The revorder pallas path is no longer wiener-only: inverse/cls
-    run the same transposed-write kernels with an unfused elementwise
-    filter, and must match the generic matmul backend."""
+def test_xla_path_serves_all_filters(rng, filter_name):
+    """inverse/cls run on the xla route as one elementwise filter
+    between the library transforms, and match the matmul backend."""
     from fft_restoration_tpu.models.pipeline import restore_planes
 
     chans = jnp.asarray(rng.random((3, 128, 256), np.float32))
     psf = jnp.asarray(rng.random((9, 9), np.float32) / 81.0)
     got = np.asarray(
-        restore_planes(chans, psf, 0.01, fft_backend="pallas",
+        restore_planes(chans, psf, 0.01, fft_backend="xla",
                        filter_name=filter_name)
     )
     want = np.asarray(

@@ -19,7 +19,7 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("backend", ["matmul", "pallas"])
+@pytest.mark.parametrize("backend", ["matmul", "xla"])
 @pytest.mark.parametrize("shape,length,angle", CASES)
 def test_parity_fuzz(rng, shape, length, angle, backend):
     img = (rng.random((*shape, 3)) * 255).astype(np.uint8)

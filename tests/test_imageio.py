@@ -1,4 +1,4 @@
-"""PNG codec parity with OpenCV's imread on the reference fixtures."""
+"""PNG codec parity with OpenCV's imread on the seed-generated fixtures."""
 
 import numpy as np
 import pytest
@@ -8,9 +8,9 @@ from fft_restoration_tpu.utils.imageio import imread, imwrite, encode_png, decod
 cv2 = pytest.importorskip("cv2")
 
 
-def test_decode_matches_cv2_car():
-    ours = imread("/root/reference/input/car_blurred.png")
-    ref = cv2.imread("/root/reference/input/car_blurred.png", cv2.IMREAD_COLOR)
+def test_decode_matches_cv2_car(car_png):
+    ours = imread(car_png)
+    ref = cv2.imread(car_png, cv2.IMREAD_COLOR)
     assert np.array_equal(ours, ref)
 
 

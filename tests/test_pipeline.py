@@ -1,4 +1,4 @@
-"""Single-chip jit pipeline vs the NumPy oracle, at the reference's
+"""Single-device jit pipeline vs the NumPy oracle, at the reference's
 verification tiers (SURVEY.md §4) — the differential-oracle pattern every
 reference driver uses (simd.cpp:66-99 et al.)."""
 
@@ -21,7 +21,7 @@ def test_jnp_psf_matches_oracle(size, angle):
     assert np.abs(ours - oracle).max() < 1e-6
 
 
-@pytest.mark.parametrize("backend", ["radix2", "matmul"])
+@pytest.mark.parametrize("backend", ["radix2", "matmul", "xla"])
 def test_restored_channels_match_oracle(rng, backend):
     img = (rng.random((40, 56, 3)) * 255).astype(np.uint8)
     pipe = WienerDeblurPipeline(fft_backend=backend)
@@ -64,28 +64,23 @@ def test_non_square_non_pow2(rng):
     assert out.shape == img.shape
 
 
-def test_psf_spectrum_cache_matches_uncached(rng):
-    """Fixed-PSF serving path: the precomputed spectrum (psf_spectrum_
-    planes) must reproduce the in-graph PSF transform bit-for-bit."""
+def test_angle_sweep_reuses_one_executable(rng):
+    """PSF angle and K are traced scalars: a sweep over angles reuses
+    the executable compiled for the frame shape and PSF length."""
     img = (rng.random((96, 160, 3)) * 255).astype(np.uint8)
-    on = WienerDeblurPipeline(fft_backend="pallas", cache_psf_spectrum=True)
-    off = WienerDeblurPipeline(fft_backend="pallas", cache_psf_spectrum=False)
-    a = on.restore(img, 9, 30.0)
-    b = off.restore(img, 9, 30.0)
-    np.testing.assert_array_equal(a, b)
-    # angle sweep reuses the executable, new spectra are cached per angle
-    c = on.restore(img, 9, 45.0)
-    d = off.restore(img, 9, 45.0)
-    np.testing.assert_array_equal(c, d)
-    assert len(on._psf_cache) == 2
-    assert len(on._psf_fns) == 1
+    pipe = WienerDeblurPipeline()
+    a = pipe.restore(img, 9, 30.0)
+    b = pipe.restore(img, 9, 45.0)
+    assert len(pipe._cache) == 1
+    assert not np.array_equal(a, b)
+    np.testing.assert_array_equal(a, WienerDeblurPipeline().restore(img, 9, 30.0))
 
 
 def test_u8_kernel_ingest_matches_f32_input():
-    """uint8 frames stream into the pallas forward kernel and convert
-    in VMEM. The in-kernel u8->f32->/255 can differ from the XLA-level
-    conversion by 1 ulp (different division lowering), so the contract
-    is ulp-scale agreement — far inside every verification tier."""
+    """uint8 frames convert to f32 on device after the de-interleave.
+    That can differ from the host-side conversion by 1 ulp (different
+    division lowering), so the contract is ulp-scale agreement — far
+    inside every verification tier."""
     import functools
 
     import jax
@@ -100,7 +95,7 @@ def test_u8_kernel_ingest_matches_f32_input():
     mk = lambda: functools.partial(
         _restore_core,
         psf_length=9,
-        fft_backend="pallas",
+        fft_backend="xla",
         filter_name="wiener",
         white_balance=True,
     )
@@ -121,11 +116,10 @@ def test_u8_kernel_ingest_matches_f32_input():
     )
 
 
-def test_bf16_staged_pipeline_matches_oracle_gpu_tier():
-    """stage_dtype='bf16' stores the inter-kernel spectral planes
-    half-width. Contract: the reference's gpu tier vs the oracle
-    (PSNR >= 30 dB / INF <= 1e-3 — gpu.cpp:13-55), plus closeness to
-    the f32-staged pipeline well above that tier."""
+def test_restore_planes_matches_oracle_gpu_tier():
+    """restore_planes on the xla route vs the oracle at the reference's
+    gpu tier (PSNR >= 30 dB / INF <= 1e-3 — gpu.cpp:13-55), on
+    pre-padded planes and through the pipeline class (uint8 in/out)."""
     import jax.numpy as jnp
 
     from fft_restoration_tpu.models.pipeline import restore_planes
@@ -133,24 +127,13 @@ def test_bf16_staged_pipeline_matches_oracle_gpu_tier():
     rng = np.random.default_rng(3)
     chans = rng.random((3, 256, 256)).astype(np.float32)
     psf = motion_blur_kernel(15, jnp.float32(45.0))
-    f32 = np.asarray(
-        restore_planes(jnp.asarray(chans), psf, 0.01, fft_backend="pallas")
-    )
-    b16 = np.asarray(
-        restore_planes(
-            jnp.asarray(chans), psf, 0.01, fft_backend="pallas",
-            stage_dtype="bf16",
-        )
-    )
-    report = channels_equal(b16, f32, "gpu")
+    ours = np.asarray(restore_planes(jnp.asarray(chans), psf, 0.01))
+    oracle = restore_channels(chans, motion_blur_kernel_oracle(15, 45.0))
+    report = channels_equal(ours, oracle, "gpu")
     assert report.passed, str(report)
-    mse = float(((f32 - b16) ** 2).mean())
-    assert 10 * np.log10(1.0 / max(mse, 1e-30)) > 50.0
 
-    # full pipeline class plumbing: uint8 in/out, same PSF
     img = (rng.random((150, 200, 3)) * 255).astype(np.uint8)
-    pipe = WienerDeblurPipeline(fft_backend="pallas", stage_dtype="bf16")
-    ours = pipe.restore_channels(img, 9, 30.0)
+    ours = WienerDeblurPipeline().restore_channels(img, 9, 30.0)
     oracle = restore_channels(
         np.moveaxis(img.astype(np.float32) / 255.0, -1, 0),
         motion_blur_kernel_oracle(9, 30.0),
@@ -159,34 +142,25 @@ def test_bf16_staged_pipeline_matches_oracle_gpu_tier():
     assert report.passed, str(report)
 
 
-def test_stage_dtype_rejects_unknown():
+def test_restore_planes_rejects_unknown_backend_and_filter():
     import jax.numpy as jnp
 
     from fft_restoration_tpu.models.pipeline import restore_planes
 
     psf = motion_blur_kernel(9, jnp.float32(30.0))
-    with pytest.raises(ValueError, match="stage_dtype"):
-        restore_planes(
-            jnp.zeros((3, 128, 128), jnp.float32), psf, 0.01,
-            fft_backend="pallas", stage_dtype="fp8",
-        )
+    x = jnp.zeros((3, 128, 128), jnp.float32)
+    with pytest.raises(ValueError, match="unknown fft backend"):
+        restore_planes(x, psf, 0.01, fft_backend="pallas")
+    with pytest.raises(ValueError, match="unknown filter"):
+        restore_planes(x, psf, 0.01, filter_name="bogus")
 
 
-def test_mxu_precision_keys_compiled_caches(rng):
-    """Flipping set_mxu_precision between two restores in one process
-    must compile a FRESH executable per precision (VERDICT round 3 #6):
-    the precision is trace-time global state, so a cache hit across the
-    flip would silently serve the stale-precision executable. On CPU
-    both precisions lower to plain f32, so the observable contract here
-    is the cache keying, not an output delta."""
-    from fft_restoration_tpu.models.pipeline import WienerDeblurPipeline
+def test_compiled_caches_key_on_shape(rng):
+    """Each cache holds one executable per distinct shape/config and
+    none per call: a repeat call hits, a new shape compiles."""
     from fft_restoration_tpu.models.tiled import (
         _DEVICE_FN_CACHE,
         tiled_restore_image,
-    )
-    from fft_restoration_tpu.ops.pallas.fft_kernel import (
-        mxu_precision_token,
-        set_mxu_precision,
     )
     from fft_restoration_tpu.parallel.sharded_pipeline import (
         _SHARDED_JIT_CACHE,
@@ -194,35 +168,27 @@ def test_mxu_precision_keys_compiled_caches(rng):
     )
 
     img = rng.integers(0, 255, (140, 180, 3), np.uint8)
-    pipe = WienerDeblurPipeline(fft_backend="pallas")
-    set_mxu_precision("default")
-    assert mxu_precision_token() == "default"
+    pipe = WienerDeblurPipeline()
     a = pipe.restore(img, 9, 30.0)
-    n_default = len(pipe._cache)
-    set_mxu_precision("highest")
-    assert mxu_precision_token() == "highest"
     b = pipe.restore(img, 9, 30.0)
-    assert len(pipe._cache) == 2 * n_default  # fresh compile, no stale hit
-    np.testing.assert_array_equal(a, b)  # CPU: both are f32
+    assert len(pipe._cache) == 1
+    np.testing.assert_array_equal(a, b)
+    pipe.restore(img[:100], 9, 30.0)
+    assert len(pipe._cache) == 2
 
-    # module-level caches key on the token too
-    chans = (
-        rng.random((3, 128, 128), np.float32)
-        if hasattr(rng, "random")
-        else np.random.default_rng(0).random((3, 128, 128), np.float32)
-    )
+    chans = np.random.default_rng(0).random((3, 128, 128), np.float32)
     psf = np.ones((5, 5), np.float32) / 25.0
     _SHARDED_JIT_CACHE.clear()
-    set_mxu_precision("default")
-    sharded_restore_planes(chans, psf, fft_backend="pallas")
-    set_mxu_precision("highest")
-    sharded_restore_planes(chans, psf, fft_backend="pallas")
+    sharded_restore_planes(chans, psf)
+    sharded_restore_planes(chans, psf)
+    assert len(_SHARDED_JIT_CACHE) == 1
+    sharded_restore_planes(chans, psf, fft_backend="matmul")
     assert len(_SHARDED_JIT_CACHE) == 2
 
     _DEVICE_FN_CACHE.clear()
     frame = rng.integers(0, 255, (150, 200, 3), np.uint8)
-    set_mxu_precision("default")
-    tiled_restore_image(frame, 7, 30.0, tile=128, fft_backend="matmul")
-    set_mxu_precision("highest")
-    tiled_restore_image(frame, 7, 30.0, tile=128, fft_backend="matmul")
+    tiled_restore_image(frame, 7, 30.0, tile=128)
+    tiled_restore_image(frame, 7, 30.0, tile=128)
+    assert len(_DEVICE_FN_CACHE) == 1
+    tiled_restore_image(frame[:140], 7, 30.0, tile=128)
     assert len(_DEVICE_FN_CACHE) == 2

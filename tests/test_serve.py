@@ -335,7 +335,7 @@ def test_serve_pad_smooth_roundtrip(rng):
     """--pad smooth server: a 300x380 frame restores at 384x384 smooth
     extents; the response must match the smooth-pad pipeline exactly."""
     args = build_parser().parse_args(
-        ["--backend", "pallas", "--pad", "smooth",
+        ["--pad", "smooth",
          "--psf-length", "5", "--psf-angle", "30"]
     )
     service = RestorationService(args)
@@ -352,10 +352,7 @@ def test_serve_pad_smooth_roundtrip(rng):
 
         from fft_restoration_tpu.models.pipeline import WienerDeblurPipeline
 
-        pipe = WienerDeblurPipeline(
-            fft_backend="pallas", pad_mode="smooth", emit_planes=False,
-            wb_stats_stride=4,  # the serving default (--wb-stride)
-        )
+        pipe = WienerDeblurPipeline(pad_mode="smooth", emit_planes=False)
         # server decodes to BGR, restores, re-encodes RGB (see
         # test_restore_matches_pipeline for the convention)
         expect_bgr = pipe.restore(img[..., ::-1].copy(), 5, 30.0)

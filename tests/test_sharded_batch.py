@@ -1,10 +1,10 @@
 """2D (batch × rows) mesh batch path — full capability coverage.
 
-Round-4 closure of VERDICT #5: RL, edge tapering, and per-frame Lab
-white balance all run ON the mesh in the batched directory path (the
-reference's contract is every capability × every mode by construction,
-/root/reference/fft/fft.hpp:9-92). Parity is against the single-chip
-jit batched pipeline, which itself verifies against the oracle.
+RL, edge tapering, and per-frame Lab white balance all run ON the mesh
+in the batched directory path (the reference's contract is every
+capability × every mode by construction, reference fft/fft.hpp:9-92).
+Parity is against the single-device jit batched pipeline, which itself
+verifies against the oracle.
 """
 
 import numpy as np

@@ -103,7 +103,7 @@ def test_tiled_matches_global_after_alignment(rng):
     )
     assert t.shape == blurred.shape and t.dtype == np.uint8
     d = psnr(glob, _affine_align(glob, t.astype(np.float64)), peak=255.0)
-    # measured 29.4 dB (docs/ROUND3.md); the global taper-on/off spread
+    # measured 29.4 dB on the CPU backend; the global taper-on/off spread
     # is 20.7 dB, so >26 means tiled sits well inside the family
     assert d > 26.0, d
 
@@ -141,7 +141,7 @@ def test_cli_tile_mode(tmp_path, rng, capsys):
     out = capsys.readouterr().out
     assert rc == 0
     assert "took(tiled)" in out and "overlap-discard" in out
-    # per-tile oracle anchor (VERDICT r3 #7): the center tile verifies
+    # per-tile oracle anchor: the center tile verifies
     # against the serial oracle at the tile extent, gpu tier
     assert "per-tile oracle anchor" in out and "[Success]" in out
     assert (tmp_path / "out.png").exists()
@@ -186,12 +186,12 @@ def test_cli_tile_directory_mode(tmp_path, rng):
     ]
 
 
-def test_tiled_pallas_matches_matmul(rng):
-    """The pallas tile path (hoisted PSF spectrum through the fused
-    kernels, interpret mode here) agrees with the matmul tile path."""
+def test_tiled_xla_matches_matmul(rng):
+    """The xla tile path (loop-invariant PSF transform hoisted by XLA)
+    agrees with the matmul tile path."""
     img = blur_image(_scene(rng, 140, 200), 7, 30.0)
     a = tiled_restore_image(
-        img, 7, 30.0, tile=128, overlap=28, fft_backend="pallas"
+        img, 7, 30.0, tile=128, overlap=28, fft_backend="xla"
     )
     b = tiled_restore_image(
         img, 7, 30.0, tile=128, overlap=28, fft_backend="matmul"
@@ -257,7 +257,7 @@ def test_tiled_rl_matches_untiled(rng):
 
 
 def test_tiled_sharded_matches_jit_host_stitch(rng):
-    """tiled x mesh (VERDICT r3 #1): the tile stack dispatched through
+    """tiled x mesh: the tile stack dispatched through
     the 2D (batch, rows) mesh — per-tile taper + RAW restore inside
     shard_map, host stitch, one global normalize/WB — matches the jit
     host-stitch tiled restore to <=2 uint8 counts (same grid, same

@@ -154,17 +154,12 @@ def test_vp8l_palette_out_of_range_index_regression():
     np.testing.assert_array_equal(_bgr(got), ref)
 
 
-def test_vp8l_real_image_far_plane_codes():
-    """Lossless encode of the reference car fixture: its transform-tile
-    streams use 2D distance codes >= 97, the tail of the spec's
-    dist_map table that a nearest-neighbour sort mis-orders (regression
-    for the generated-table bug; bit-exactness checked end to end)."""
-    import os
-
-    src = "/root/reference/input/car_blurred.png"
-    if not os.path.exists(src):
-        pytest.skip("reference fixture unavailable")
-    img = cv2.imread(src)
+def test_vp8l_real_image_far_plane_codes(car_png):
+    """Lossless encode of the car fixture: its transform-tile streams
+    use 2D distance codes >= 97, the tail of the spec's dist_map table
+    that a nearest-neighbour sort mis-orders (regression for the
+    generated-table bug; bit-exactness checked end to end)."""
+    img = cv2.imread(car_png)
     blob, ref = _roundtrip(img, [cv2.IMWRITE_WEBP_QUALITY, 101])
     got = decode_webp(blob)
     np.testing.assert_array_equal(_bgr(got)[..., :3], ref[..., :3])
